@@ -1,0 +1,131 @@
+"""Device selection, float32 precision settings and the CUDA kernel build.
+
+JAX counterpart: ``rgbdslam_v2_tpu/__init__.py`` (global "highest" matmul
+precision) plus the TPU-backend gate in ``models/orb.py``. Here:
+
+* :func:`resolve_device` picks the device. Asking for CUDA where none is
+  present raises; nothing falls back silently.
+* :func:`set_precision` turns TF32 off for matmuls and cuDNN convolutions,
+  matching the reference's "highest" float32 precision.
+* :func:`load_kernel_library` is the one place that compiles a ``csrc/*.cu``
+  source with ``nvcc`` into a plain-C shared library and loads it with
+  ``ctypes``. The build is keyed by a hash of the source, lands in the
+  git-ignored ``_build/`` directory beside this file, and a failed build
+  raises with the compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # no FMA contraction: the kernels repeat the plain torch version's
+    # operation order, so without contraction they round identically
+    "--fmad=false",
+]
+
+_libs: dict = {}
+_lock = threading.Lock()
+_constants: dict = {}
+
+
+def set_precision() -> None:
+    """Full float32 for matmuls and convolutions (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """None -> CUDA when present, else CPU. An explicit CUDA request
+    without a CUDA device raises RuntimeError."""
+    set_precision()
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def constant(key, build, device) -> torch.Tensor:
+    """A device copy of a host constant (build() -> array), made once per
+    device: a per-call copy from pageable host memory would synchronize the
+    stream."""
+    dev = torch.device(device)
+    t = _constants.get((key, dev))
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.as_tensor(build()).to(dev)
+        _constants[(key, dev)] = t
+    return t
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """Build location of csrc/<name>.cu, keyed by the source's hash."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_kernel_library(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the hash-keyed library exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """Build (first use) and load csrc/<name>.cu; cached per process."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_kernel_library(name)))
+            _libs[name] = lib
+        return lib
+
+
+def check_launch(status: int, what: str) -> None:
+    """Raise when a C entry point reports a CUDA error (cudaGetLastError)."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {status}")
