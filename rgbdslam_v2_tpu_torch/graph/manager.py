@@ -274,8 +274,11 @@ class GraphManager:
             chi2, n_it = optimize(
                 self.graph, iterations=iterations or p["optimizer_iterations"],
                 huber_delta=p["huber_delta"], n_nodes=self.n_nodes, n_edges=self.n_edges)
-            self.last_optimize_iters = n_it
-            return float(chi2) if blocking else float("nan")
+            if blocking:
+                # the JAX package reports iterations of blocking calls only
+                self.last_optimize_iters = int(n_it)
+                return float(chi2)
+            return float("nan")
         finally:
             self.nodes_since_optimize = 0
 

@@ -5,11 +5,14 @@ Port of ``rgbdslam_v2_tpu/models/orb.py``: ``OrbExtractor.__call__``
 32x32 patch description on the blurred level image, global top-K merge,
 backprojection), ``min_depth_map`` and ``feature_depth_map``.
 
-The per-level detection goes through ``ops/detect.detect_corners``: the
-hand-written CUDA kernel for a CUDA image (the JAX package's Pallas kernel
-on a TPU), its plain torch version for a CPU image. ``fast_threshold`` is a
-run-time argument of the kernel, so the manager's adaptive detector changes
-it without a rebuild.
+The level images are built first, each resized from level 0 straight into
+the detect kernel's level layout (rows padded to 4 floats where the width
+needs it, ``ops/detect.pitched_empty``); one
+``ops/detect.detect_pyramid`` call then scores every level: one launch of
+the hand-written CUDA kernel for a CUDA image (the JAX package runs its
+Pallas kernel per level on a TPU), the plain torch version level by level
+for a CPU image. ``fast_threshold`` is a run-time argument of the kernel, so
+the manager's adaptive detector changes it without a rebuild.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import dataclasses
 import math
 from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,18 +53,27 @@ class OrbExtractor:
         inv = [self.scale_factor**-lvl for lvl in range(self.n_levels)]
         return max(16, int(math.ceil(self.max_keypoints * inv[level] / sum(inv))))
 
+    def pyramid(self, gray: torch.Tensor) -> List[torch.Tensor]:
+        """The level images in the detect kernel's level layout: level 0 is
+        `gray` (copied only if its layout does not fit), level l its bilinear
+        resize to level_shapes[l], written straight into padded rows."""
+        H, W = gray.shape
+        images = [detect.as_level(gray)]
+        for h, w in self.level_shapes(H, W)[1:]:
+            images.append(resize_bilinear(gray, (h, w),
+                                          out=detect.pitched_empty(h, w, gray.device)))
+        return images
+
     def __call__(self, gray: torch.Tensor, depth_min: torch.Tensor,
                  cam: Intrinsics) -> Keypoints:
         """gray (H, W) float32 in [0, 1]; depth_min (H, W) feature depth,
         +inf where unusable."""
         H, W = gray.shape
         dev = gray.device
+        images = self.pyramid(gray)
+        score_maps = detect.detect_pyramid(images, self.fast_threshold)
         all_uv, all_score, all_level, all_theta, all_desc = [], [], [], [], []
-        img_l = gray
-        for lvl, (h, w) in enumerate(self.level_shapes(H, W)):
-            if lvl > 0:
-                img_l = resize_bilinear(gray, (h, w)).contiguous()
-            score_map = detect.detect_corners(img_l, self.fast_threshold)
+        for lvl, (img_l, score_map) in enumerate(zip(images, score_maps)):
             k_l = self.level_budget(lvl)
             uv, sc, _ = fast_ops.select_keypoints_grid(score_map, k_l, grid=self.grid)
             blur_l = gaussian_blur(img_l, 2.0)
@@ -91,11 +104,18 @@ class OrbExtractor:
         z = torch.where(valid, z[top_idx], 0.0)
         theta = theta_all[top_idx]
         desc = desc_all[top_idx] * valid[:, None]
-        x = (uv[:, 0] - cam.cx) * z / cam.fx
-        y = (uv[:, 1] - cam.cy) * z / cam.fy
+        # XLA compiles a division by a constant as a product with its float32
+        # reciprocal; the same order gives the reference's bits
+        x = (uv[:, 0] - cam.cx) * z * _recip32(cam.fx)
+        y = (uv[:, 1] - cam.cy) * z * _recip32(cam.fy)
         xyz = torch.stack([x, y, z], dim=-1)
         return Keypoints(uv=uv, xyz=xyz, score=top_score, theta=theta, desc=desc,
                          valid=valid, level=level)
+
+
+def _recip32(v: float) -> float:
+    """1/v rounded to float32 (exact as a Python float)."""
+    return float(np.float32(1.0) / np.float32(v))
 
 
 def min_depth_map(depth: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

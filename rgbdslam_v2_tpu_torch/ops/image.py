@@ -97,15 +97,21 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
-def resize_bilinear(img: torch.Tensor, shape) -> torch.Tensor:
-    """(H, W) -> shape, as jax.image.resize(img, shape, "bilinear")."""
+def resize_bilinear(img: torch.Tensor, shape, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(H, W) -> shape, as jax.image.resize(img, shape, "bilinear"). `out`, an
+    (h, w) tensor with unit column stride, receives the last product in place
+    (its rows may be padded)."""
     H, W = img.shape
     h, w = shape
-    out = img
+    res = img
     if h != H:
         wy = backend.constant(("resize", H, h), lambda: resize_weights(H, h), img.device)
-        out = wy.T @ out
+        res = torch.mm(wy.T, res, out=out if w == W else None)
     if w != W:
         wx = backend.constant(("resize", W, w), lambda: resize_weights(W, w), img.device)
-        out = out @ wx
+        res = torch.mm(res, wx, out=out)
+    if out is None:
+        return res
+    if res is img:
+        out.copy_(img)
     return out

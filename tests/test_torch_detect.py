@@ -4,7 +4,7 @@ The port's plain version (ops/fast.detect_corners) against the JAX XLA
 version and against the Pallas kernel run in interpret mode: the corner
 mask equal, scores within rtol 2e-4 (the tolerance of
 tests/test_pallas_detect.py). The hand-written CUDA kernel against the plain
-version runs only where a CUDA device is present (marker `cuda`).
+version is in tests/test_torch_kernels_cuda.py, which needs no JAX.
 """
 import numpy as np
 import pytest
@@ -54,11 +54,11 @@ def test_plain_matches_pallas_interpret():
 def test_wrapper_uses_plain_version_only_for_cpu_tensors():
     img = torch.from_numpy(_image((96, 128), seed=2))
     before = detect.LAUNCHES
-    out = detect.detect_corners(img, 0.05)
+    out = detect.detect_pyramid([img], 0.05)[0]
     assert detect.LAUNCHES == before  # the plain version counts no launch
     torch.testing.assert_close(out, fast.detect_corners(img, 0.05))
     with pytest.raises(ValueError):
-        detect.detect_corners_cuda(img, 0.05)  # a CPU tensor never reaches the kernel
+        detect.detect_pyramid_cuda([img], 0.05)  # a CPU tensor never reaches the kernel
 
 
 def test_cuda_request_without_cuda_raises():
@@ -84,15 +84,5 @@ def test_failed_build_and_launch_raise(tmp_path, monkeypatch):
         backend.build_kernel_library("broken")
     assert not list((tmp_path / "build").glob("*"))
     with pytest.raises(RuntimeError, match="error code 700"):
-        backend.check_launch(700, "detect_corners_f32")
+        backend.check_launch(700, "detect_pyramid_f32")
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(480, 640), (400, 533), (333, 444), (278, 370)])
-def test_cuda_kernel_matches_plain(shape):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    img = torch.from_numpy(_image(shape, seed=3)).cuda()
-    got = detect.detect_corners(img, 0.06).cpu().numpy()
-    ref = fast.detect_corners(img, 0.06).cpu().numpy()
-    _assert_same_corners(ref, got)

@@ -3,7 +3,7 @@ the OrbExtractor, against the JAX package on numpy-seeded inputs."""
 import numpy as np
 import pytest
 
-pytest.importorskip("jax")
+jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
@@ -13,7 +13,7 @@ from rgbdslam_v2_tpu.models.orb import OrbExtractor as JOrb  # noqa: E402
 from rgbdslam_v2_tpu.ops import fast as jfast, image as jimage, orb as jorb  # noqa: E402
 from rgbdslam_v2_tpu_torch.core.camera import Intrinsics  # noqa: E402
 from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor  # noqa: E402
-from rgbdslam_v2_tpu_torch.ops import fast, image, orb  # noqa: E402
+from rgbdslam_v2_tpu_torch.ops import detect, fast, image, orb  # noqa: E402
 
 torch.set_num_threads(1)
 CAM = (130.0, 130.0, 80.0, 60.0, 160, 120)
@@ -26,6 +26,19 @@ def test_resize_matches_jax_image_resize(shape):
     ref = np.asarray(jimage.resize_bilinear(jnp.asarray(img), shape))
     got = image.resize_bilinear(torch.from_numpy(img), shape).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(400, 533), (100, 133)])
+def test_padded_resize_matches_unpadded(shape):
+    """The pyramid writes a resize into rows padded to 4 floats: the same
+    bits as the unpadded product, and so the same tolerance to JAX."""
+    img = np.random.default_rng(0).uniform(0, 1, (480, 640)).astype(np.float32)
+    ref = np.asarray(jimage.resize_bilinear(jnp.asarray(img), shape))
+    out = detect.pitched_empty(*shape, "cpu")
+    got = image.resize_bilinear(torch.from_numpy(img), shape, out=out)
+    assert got is out and out.stride(0) % 4 == 0 and out.stride(0) > shape[1]
+    assert torch.equal(got, image.resize_bilinear(torch.from_numpy(img), shape))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
 
 
 def test_select_keypoints_grid_exact():
@@ -51,18 +64,19 @@ def test_brief_cells_reproduce_jax_bin_matrix():
 
 
 def test_orb_extractor_matches_jax():
-    """160x120, K=256: uv, level, valid exact; descriptors bit-exact;
-    xyz rtol 1e-5."""
+    """160x120, K=256, the JAX extractor jit-compiled as the pipeline runs it:
+    uv, level, valid, descriptors and backprojected xyz bitwise equal."""
     world = SyntheticWorld.create(seed=0, texture_size=256, cam=JIntrinsics(*CAM))
     _, rgbs, depths = render_sequence(world, 2, seed=2)
     gray = (rgbs[1].astype(np.float32) @ np.float32([0.299, 0.587, 0.114]) / 255.0)
     gray = gray.astype(np.float32)
     dmap = np.where(depths[1] > 0, depths[1], np.inf).astype(np.float32)
-    ref = JOrb(max_keypoints=256, use_pallas=False)(jnp.asarray(gray), jnp.asarray(dmap),
-                                                    JIntrinsics(*CAM))
+    jorb = JOrb(max_keypoints=256, use_pallas=False)
+    ref = jax.jit(lambda g, d: jorb(g, d, JIntrinsics(*CAM)))(jnp.asarray(gray),
+                                                              jnp.asarray(dmap))
     got = OrbExtractor(max_keypoints=256)(torch.from_numpy(gray), torch.from_numpy(dmap),
                                           Intrinsics(*CAM))
     assert int(got.valid.sum()) > 100
-    for name in ("uv", "level", "valid", "desc"):
-        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
-    np.testing.assert_allclose(got.xyz.numpy(), np.asarray(ref.xyz), rtol=1e-5, atol=1e-7)
+    for name in ("uv", "level", "valid", "desc", "xyz"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+                                      err_msg=name)

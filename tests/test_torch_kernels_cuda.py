@@ -1,0 +1,104 @@
+"""The hand-written CUDA kernels against their plain torch versions, on the
+card (marker `cuda`; each test skips without a CUDA device). Imports torch,
+numpy and the port only, so it runs where JAX is not installed (the repo's
+tests/conftest.py imports JAX, hence --noconftest there):
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+The detect kernel is bitwise the plain version: equal corner masks and
+max abs error 0 on every level, at the adaptive detector's thresholds."""
+import numpy as np
+import pytest
+import torch
+
+from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor
+from rgbdslam_v2_tpu_torch.ops import detect, fast
+from rgbdslam_v2_tpu_torch.ops.image import resize_bilinear
+
+
+def _image(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = np.kron(rng.uniform(0, 1, (h // 16 + 1, w // 16 + 1)), np.ones((16, 16)))[:h, :w]
+    return (img + rng.normal(0, 0.02, img.shape)).astype(np.float32)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _detect_one(img, threshold):
+    """One image as a one-level pyramid: its (H, W) score map."""
+    return detect.detect_pyramid([detect.as_level(img)], threshold)[0]
+
+
+def _assert_bitwise(ref, got):
+    assert torch.equal(torch.isfinite(ref), torch.isfinite(got))
+    assert int(torch.isfinite(ref).sum()) > 10
+    assert torch.equal(ref, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (400, 533), (333, 444), (278, 370)])
+def test_cuda_kernel_matches_plain(shape):
+    img = torch.from_numpy(_image(shape, seed=3)).to(_cuda())
+    got = _detect_one(img, 0.06)
+    ref = fast.detect_corners(img, 0.06)
+    torch.cuda.synchronize()
+    _assert_bitwise(ref, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.06, 0.015, 0.001875])
+def test_cuda_pyramid_one_launch_matches_plain(threshold):
+    gray = torch.from_numpy(_image((480, 640), seed=7)).to(_cuda())
+    images = OrbExtractor().pyramid(gray)
+    assert images[0] is gray  # 640 wide: level 0 is read in place
+    before = detect.LAUNCHES
+    maps = detect.detect_pyramid(images, threshold)
+    assert detect.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    for img, got in zip(images, maps):
+        _assert_bitwise(fast.detect_corners(img, threshold), got)
+
+
+@pytest.mark.cuda
+def test_cuda_padded_resize_matches_unpadded():
+    """The pyramid's resizes write padded rows (533 -> 536, 370 -> 372
+    floats) in place: bitwise the unpadded product, as on the CPU."""
+    gray = torch.from_numpy(_image((480, 640), seed=7)).to(_cuda())
+    images = OrbExtractor().pyramid(gray)
+    assert [img.stride(0) for img in images] == [640, 536, 444, 372]
+    for img in images[1:]:
+        assert torch.equal(img, resize_bilinear(gray, tuple(img.shape)))
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_instead_of_falling_back():
+    dev = _cuda()
+    img = torch.zeros(64, 64, device=dev)
+    with pytest.raises(ValueError, match="border"):
+        detect.detect_pyramid([img], 0.05, border=3)
+    with pytest.raises(ValueError, match="aligned"):
+        detect.detect_pyramid([torch.zeros(64 * 64 + 1, device=dev)[1:].view(64, 64)], 0.05)
+    with pytest.raises(ValueError, match="one device"):
+        detect.detect_pyramid([img, img.cpu()], 0.05)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_ties_and_signed_zeros():
+    """FAST's strict comparisons at exact ties (v == center +- threshold) and
+    signed zeros (a center equal to the threshold puts lo at +0 against -0
+    pixels): the kernel's sign-of-difference tests agree bitwise."""
+    rng = np.random.default_rng(8)
+    t = 0.25
+    values = np.float32([-0.0, 0.0, t, -t, 2 * t, 0.5 * t])
+    img = torch.from_numpy(values[rng.integers(0, len(values), (200, 264))]).to(_cuda())
+    assert bool((torch.signbit(img) & (img == 0)).any())
+    got = _detect_one(img, t)
+    ref = fast.detect_corners(img, t)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(ref), torch.isfinite(got))
+    assert torch.equal(ref, got)

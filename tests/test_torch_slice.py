@@ -4,7 +4,7 @@ JAX-rendered 160x120 sequence (the verify-recipe scale).
 
 RANSAC draws differ (jax.random vs torch.Generator), so the graphs are not
 bitwise equal. Asserted: the first frame's keypoints are identical (their
-backprojected xyz to rtol 1e-6), both
+backprojected xyz too), both
 protocol ATE L4 values are below 0.03 m, and the port's accepted-edge count
 is within 25% of the JAX package's. The port's torch renderer matches the
 JAX renderer (rgb within 1/255, depth within 1e-4 m).
@@ -65,8 +65,7 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
     for name in ("uv", "desc", "kp_valid"):  # first frame: identical keypoints
         np.testing.assert_array_equal(getattr(ts, name)[0].numpy(),
                                       np.asarray(getattr(js, name)[0]), err_msg=name)
-    # backprojection: XLA fuses (u - cx) * z / fx differently (1 ulp)
-    np.testing.assert_allclose(ts.xyz[0].numpy(), np.asarray(js.xyz[0]), rtol=1e-6)
+    np.testing.assert_array_equal(ts.xyz[0].numpy(), np.asarray(js.xyz[0]), err_msg="xyz")
     assert tpipe.manager.n_nodes == jpipe.manager.n_nodes == N_FRAMES
     assert jrep.ate_rmse[4] < 0.03 and trep.ate_rmse[4] < 0.03, (jrep.ate_rmse, trep.ate_rmse)
     assert abs(t_acc - j_acc) <= 0.25 * j_acc, (t_acc, j_acc)
