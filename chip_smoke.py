@@ -27,7 +27,20 @@ and prints no result:
      the detect kernel's launch count, which must equal the frames
      processed (one launch a frame);
   4. protocol: the 5-level evaluation protocol, ATE L0..L4 against the exact
-     ground truth; L4 must be at most 0.03 m.
+     ground truth; L4 must be at most 0.03 m;
+  5. default configuration: SlamPipeline(TUM_DEFAULT, default_params(),
+     device="cuda") unchanged (ORB-600 over 4 levels, 8 candidates,
+     RANSAC-200, observability_threshold=0, the host-decision path with
+     motion gates and keyframes, online PCG optimize of every node: 3 LM x
+     24 CG iterations; 4096-node / 65536-edge capacity) on the first
+     DEFAULT_FRAMES frames of the same sequence, 20 warm-up frames; prints
+     fps, the graph (nodes, dropped frames, sequential / loop /
+     constant-position edges, keyframes), detect launches a frame (must be
+     1), the median ms of one online optimize (host clock, synchronized),
+     peak device memory and the protocol's ATE L0..L4 (finite, L4 at most
+     DEFAULT_ATE_L4_MAX), and fails if any optimize used the dense solver.
+     Phases 3-4 are not cut: the whole run stays within twice the time of
+     the run before phase 5 was added.
 Before the last line it prints one JSON object with the kernels' measured
 numbers; the last line is {"ok": true, "device": {...}}.
 
@@ -53,7 +66,14 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # two 5-tap blurs of three maps 54 + Harris 7 + FAST 2 + 32 compares + NMS 9
 DETECT_OPS_PER_PX = 127
 ATE_L4_MAX = 0.03  # metres
+# The default configuration closes no loop (its 8 candidate slots go to 4
+# predecessors and 4 geodesic neighbours, none to sampled keyframes), so it
+# drifts: the JAX package itself reads L4 0.0562 m on this trajectory at
+# 160x120 over 300 frames (tools/default_path_ate.py, on the CPU). Bound:
+# that x 1.5.
+DEFAULT_ATE_L4_MAX = 1.5 * 0.0562  # metres
 WARMUP = 20  # frames before the timed run, as in bench.py
+DEFAULT_FRAMES = 300  # frames of the default-configuration phase
 WORLD_SEED = 0  # synthetic world (textures, boxes)
 
 
@@ -137,6 +157,7 @@ def main() -> None:
     args = ap.parse_args()
     if args.frames <= WARMUP + 2:
         fail(f"--frames must be at least {WARMUP + 3}")
+    n_default = min(DEFAULT_FRAMES, args.frames)
 
     if not (ROOT / "rgbdslam_v2_tpu_torch" / "csrc" / "detect_corners.cu").is_file():
         fail(f"the port package is not beside {Path(__file__).name}")
@@ -148,7 +169,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is false")
 
     from rgbdslam_v2_tpu_torch import backend
+    from rgbdslam_v2_tpu_torch.config import default_params
     from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
     from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
     from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor
     from rgbdslam_v2_tpu_torch.ops import detect, fast
@@ -267,6 +290,7 @@ def main() -> None:
     if launches != pipe.n_processed:
         fail(f"detect kernel launched {launches} times, expected one a frame "
              f"({pipe.n_processed})")
+    n_main = pipe.n_processed
 
     # ---- 4. protocol ---------------------------------------------------
     t0 = time.perf_counter()
@@ -283,6 +307,73 @@ def main() -> None:
     if ate[4] > ATE_L4_MAX:
         fail(f"protocol ATE L4 {ate[4]:.4f} m above {ATE_L4_MAX} m")
 
+    # ---- 5. default configuration -------------------------------------
+    del pipe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    detect.reset_launches()
+    pipe = SlamPipeline(TUM_DEFAULT, default_params(), device=dev)
+    mgr = pipe.manager
+    online_ms = []
+    online = mgr.optimize
+
+    def timed_optimize(*a, **kw):  # host clock around one synchronized optimize
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = online(*a, **kw)
+        torch.cuda.synchronize()
+        online_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    mgr.optimize = timed_optimize
+    sl = slice(0, n_default)
+    pipe.run_arrays(rgbs[:WARMUP], depths[:WARMUP], stamps[:WARMUP], gt_poses=poses[sl])
+    torch.cuda.synchronize()
+    online_ms.clear()
+    t0 = time.perf_counter()
+    pipe.run_arrays(rgbs[WARMUP:n_default], depths[WARMUP:n_default], stamps[WARMUP:n_default])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del mgr.optimize
+    launches_default = detect.LAUNCHES
+    fps_default = (n_default - WARMUP) / dt
+    stats = mgr.statistics()
+    n_const = sum(t == EDGE_CONST_POSITION for t in mgr.host.edge_types)
+    peak_default = torch.cuda.max_memory_allocated() / 2**30
+    phase(f"[5 default] {fps_default:.2f} fps over {n_default - WARMUP} frames "
+          f"({1e3 * dt / (n_default - WARMUP):.2f} ms/frame, compact encode included); "
+          f"nodes {stats['nodes']}, dropped frames {pipe.n_dropped}, edges {stats['edges']} "
+          f"({stats['sequential_edges']} sequential, {stats['loop_edges']} loop, {n_const} "
+          f"constant-position), keyframes {stats['keyframes']}; detect launches "
+          f"{launches_default} for {pipe.n_processed} frames; online optimize median "
+          f"{statistics.median(online_ms):.2f} ms over {len(online_ms)} calls "
+          f"(min {min(online_ms):.2f}, max {max(online_ms):.2f}); solver calls "
+          f"{mgr.solver_calls}; peak device memory {peak_default:.2f} GiB")
+    if pipe.n_processed != n_default or stats["nodes"] + pipe.n_dropped != n_default:
+        fail(f"processed {pipe.n_processed} frames: {stats['nodes']} nodes and "
+             f"{pipe.n_dropped} dropped; expected {n_default} frames")
+    if launches_default != pipe.n_processed:
+        fail(f"detect kernel launched {launches_default} times on the default path, "
+             f"expected one a frame ({pipe.n_processed})")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        rep = pipe.evaluation_protocol(td, gt_stamps=list(stamps[sl]),
+                                       gt_xyz=poses[sl, :3, 3])
+    est = mgr.poses()
+    if est.shape != (stats["nodes"], 4, 4) or not np.isfinite(est).all():
+        fail(f"default-configuration trajectory has shape {est.shape} or non-finite poses")
+    ate_d = [rep.ate_rmse.get(lvl, float("nan")) for lvl in range(5)]
+    phase(f"[5 default] protocol ATE L0..L4 {' / '.join(f'{a:.4f}' for a in ate_d)} m "
+          f"(in {time.perf_counter() - t0:.1f} s; limit L4 <= {DEFAULT_ATE_L4_MAX:.4f}); "
+          f"solver calls {mgr.solver_calls}")
+    if mgr.solver_calls["dense"] or not mgr.solver_calls["pcg"]:
+        fail(f"the default configuration's optimize used the dense solver: "
+             f"{mgr.solver_calls}")
+    if not all(np.isfinite(ate_d)):
+        fail(f"default-configuration ATE not finite: {ate_d}")
+    if ate_d[4] > DEFAULT_ATE_L4_MAX:
+        fail(f"default-configuration ATE L4 {ate_d[4]:.4f} m above {DEFAULT_ATE_L4_MAX:.4f} m")
+
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s")
     (dk, ek), (dp, ep) = times["frame"], times["frame_plain"]
     bound, by = times["frame_bound"]
@@ -292,7 +383,9 @@ def main() -> None:
         "source": "rgbdslam_v2_tpu_torch/csrc/detect_corners.cu",
         "replaces": "rgbdslam_v2_tpu/ops/pallas_detect.py:122",
         "launches": launches,
-        "launches_per_frame": launches / pipe.n_processed,
+        "launches_per_frame": launches / n_main,
+        "launches_default": launches_default,
+        "launches_per_frame_default": launches_default / pipe.n_processed,
         "max_abs_err": max_abs,
         # one frame's four levels, profiler device time (null where the trace
         # held no device activity; the event spans below include the host)

@@ -2,15 +2,17 @@
 
 Same layering and module names as the JAX package (``rgbdslam_v2_tpu``),
 which stays the reference: every module here names its JAX counterpart in
-its docstring. This package imports torch and numpy, never jax.
+its docstring. This package imports torch and numpy, never jax. Its entry
+points run on the CUDA card unless the caller passes device="cpu".
 
   core/      SE(3) geometry, pinhole camera, depth noise, rigid alignment
   ops/       image ops, FAST/Harris detection (hand-written CUDA kernel in
              csrc/), ORB description, matching, RANSAC, EMM
   models/    OrbExtractor and the Keypoints container
   graph/     ingest wire, node store, candidate compare, per-frame step,
-             GraphManager (keep-all fast path)
-  optim/     LM pose-graph optimization (dense solver)
+             GraphManager (keep-all fast path and host-decision path),
+             host bookkeeping and decisions
+  optim/     LM pose-graph optimization (dense and PCG solvers)
   pipeline/  SlamPipeline and the 5-level evaluation protocol
   eval/      ATE
   io/        TUM trajectory I/O, synthetic world renderer

@@ -3,8 +3,9 @@
 JAX counterpart: ``rgbdslam_v2_tpu/__init__.py`` (global "highest" matmul
 precision) plus the TPU-backend gate in ``models/orb.py``. Here:
 
-* :func:`resolve_device` picks the device. Asking for CUDA where none is
-  present raises; nothing falls back silently.
+* :func:`resolve_device` picks the device: the card unless the caller
+  names the CPU. Asking for CUDA where none is present raises; nothing
+  falls back silently.
 * :func:`set_precision` turns TF32 off for matmuls and cuDNN convolutions,
   matching the reference's "highest" float32 precision.
 * :func:`load_kernel_library` is the one place that compiles a ``csrc/*.cu``
@@ -48,14 +49,14 @@ def set_precision() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """None -> CUDA when present, else CPU. An explicit CUDA request
-    without a CUDA device raises RuntimeError."""
+    """None means the CUDA card. A CUDA request (None included) without a
+    CUDA device raises RuntimeError: the CPU runs only when asked for by
+    name (device="cpu")."""
     set_precision()
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not available "
+                           "(pass device='cpu' to run on the CPU)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     if dev.type == "cuda" and dev.index is None:

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import se3
@@ -26,6 +27,41 @@ class CompareResult(NamedTuple):
     ransac_ok: torch.Tensor  # (B,) bool
     emm_quality: torch.Tensor  # (B,)
     emm_inlier_frac: torch.Tensor  # (B,)
+
+
+class CompareSummary(NamedTuple):
+    """Host copy of a CompareResult plus the new frame's valid keypoint
+    count: what the host-decision path reads, moved in ONE device->host
+    copy of a flat float32 vector (B*16 + 5B + 1 values)."""
+
+    transform: np.ndarray  # (B, 4, 4) float32
+    n_inliers: np.ndarray  # (B,) int
+    rmse: np.ndarray  # (B,) float32
+    ransac_ok: np.ndarray  # (B,) bool
+    emm_quality: np.ndarray  # (B,) float32
+    emm_inlier_frac: np.ndarray  # (B,) float32
+    n_valid_kp: int
+
+    @staticmethod
+    def pack(res: CompareResult, n_valid_kp: torch.Tensor) -> torch.Tensor:
+        return torch.cat([
+            res.transform.reshape(-1), res.n_inliers.float(), res.rmse,
+            res.ransac_ok.float(), res.emm_quality, res.emm_inlier_frac,
+            n_valid_kp.float().reshape(1),
+        ])
+
+    @classmethod
+    def unpack(cls, flat: np.ndarray, B: int) -> "CompareSummary":
+        v = flat[16 * B :]
+        return cls(
+            transform=flat[: 16 * B].reshape(B, 4, 4),
+            n_inliers=v[:B].astype(int),
+            rmse=v[B : 2 * B],
+            ransac_ok=v[2 * B : 3 * B] > 0.5,
+            emm_quality=v[3 * B : 4 * B],
+            emm_inlier_frac=v[4 * B : 5 * B],
+            n_valid_kp=int(v[5 * B]),
+        )
 
 
 def strided_points(zs: torch.Tensor, cam_small: Intrinsics, e: int) -> torch.Tensor:

@@ -6,6 +6,9 @@ commit into two programs only to steer XLA's copy insertion; here they are
 one function that writes the node row and its B+1 edge slots in place.
 All per-frame decisions stay on the device; the host reads the packed
 (4B+2,) summary later, at a drain.
+
+``commit_node`` is the in-place write shared with the host-decision path
+(JAX ``manager._commit_node``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,24 @@ class StepSummary(NamedTuple):
             fallback_used=bool(flat[4 * B] > 0.5),
             n_valid_kp=int(flat[4 * B + 1]),
         )
+
+
+def commit_node(store: NodeStore, graph: GraphState, new_id: int, kp, depth_small,
+                color_small, base_id: torch.Tensor, base_T_new: torch.Tensor,
+                edge_start: int, e_i: torch.Tensor, e_j, e_meas: torch.Tensor,
+                e_info: torch.Tensor, e_active: torch.Tensor) -> None:
+    """Insert node new_id, posed at poses[base_id] @ base_T_new (base_id a
+    (1,) long tensor), and write the edge slots edge_start.. where e_active,
+    in place. e_j is a (n,) tensor or one node id for every slot."""
+    store.insert(new_id, kp, depth_small, color_small)
+    graph.poses[new_id] = graph.poses.index_select(0, base_id)[0] @ base_T_new
+    graph.node_active[new_id].fill_(True)  # fill_: a Python value set would sync
+    sl = slice(edge_start, edge_start + e_i.shape[0])
+    graph.edge_i[sl] = torch.where(e_active, e_i, graph.edge_i[sl])
+    graph.edge_j[sl] = torch.where(e_active, e_j, graph.edge_j[sl])
+    graph.edge_meas[sl] = torch.where(e_active[:, None, None], e_meas, graph.edge_meas[sl])
+    graph.edge_info[sl] = torch.where(e_active[:, None, None], e_info, graph.edge_info[sl])
+    graph.edge_active[sl] |= e_active
 
 
 def slam_step(
@@ -128,16 +149,8 @@ def slam_step(
     e_info = torch.cat([vis_info, (fb_info * eye6)[None]], dim=0)
     e_active = torch.cat([accept, fallback[None]])
 
-    # ---- commit, in place --------------------------------------------------
-    store.insert(new_id, kp, depth_small, color_small)
-    graph.poses[new_id] = graph.poses.index_select(0, base_id.view(1))[0] @ base_T_new
-    graph.node_active[new_id] = True
-    sl = slice(edge_start, edge_start + B + 1)
-    graph.edge_i[sl] = torch.where(e_active, e_i, graph.edge_i[sl])
-    graph.edge_j[sl] = torch.where(e_active, new_id, graph.edge_j[sl])
-    graph.edge_meas[sl] = torch.where(e_active[:, None, None], e_meas, graph.edge_meas[sl])
-    graph.edge_info[sl] = torch.where(e_active[:, None, None], e_info, graph.edge_info[sl])
-    graph.edge_active[sl] |= e_active
+    commit_node(store, graph, new_id, kp, depth_small, color_small, base_id.view(1),
+                base_T_new, edge_start, e_i, new_id, e_meas, e_info, e_active)
 
     return torch.cat([
         accept.float(), res.n_inliers.float(), res.rmse, res.emm_quality,

@@ -1,17 +1,27 @@
-"""GraphManager: the keep-all-nodes fast path of the SLAM pose graph.
+"""GraphManager: the SLAM pose graph, fed frame by frame.
 
-Port of the keep-all path of ``rgbdslam_v2_tpu/graph/manager.py``:
-``__init__``, the first-frame branch of ``add_frame``,
-``_add_frame_device``, ``_drain_pending`` (synchronous, no staging),
-``_drain_batch``, ``_adapt_detector``, ``_apply_fixation``, ``optimize``
-(non-inaffected), ``prune_edges_above``, ``poses``, ``trajectory`` and
-``statistics``. Host bookkeeping lives in ``graph/host_graph.py``.
+Port of ``rgbdslam_v2_tpu/graph/manager.py``: ``__init__``, ``add_frame``
+(first frame, the keep-all fast path and the host-decision path without
+odometry and ICP), ``_commit``, ``_add_frame_device``, ``_drain_pending``
+(synchronous, no staging), ``_drain_batch``, ``_adapt_detector``,
+``_apply_fixation``, ``_inaffected_kernel``, ``_optimize_inaffected``,
+``optimize``, ``prune_edges_above``, ``toggle_mapping``,
+``delete_last_frame``, ``clear_feature_information``, ``reset``,
+``poses``, ``trajectory`` and ``statistics``. Host bookkeeping and the
+per-frame decisions live in ``graph/host_graph.py``.
 
-Every frame after the first runs ``device_step.slam_step`` on the device;
-its (4B+2,) summary is copied to the host asynchronously and read at the
-next drain (every ``tpu_drain_interval`` frames, leaving the newest 2 in
-flight), so candidate selection sees the same host state as the JAX
-package. Configuration outside this slice raises NotImplementedError.
+Two per-frame paths, chosen as in the JAX package:
+
+* keep-all fast path (``keep_all_nodes`` with no motion gate, mapping on):
+  every frame runs ``device_step.slam_step`` on the device; its (4B+2,)
+  summary is copied to the host asynchronously and read at the next drain
+  (every ``tpu_drain_interval`` frames, leaving the newest 2 in flight).
+* host-decision path (the default configuration, TRO 2014): extract,
+  select candidates on the host, compare on the device, pull the result
+  and the keypoint count in ONE device->host copy, decide on the host
+  (motion gates, redundancy, keyframes), commit in place, optimize online.
+
+Configuration outside the port raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,45 +36,54 @@ from .. import backend
 from ..config import ParameterServer, default_params
 from ..core.camera import Intrinsics
 from ..models.orb import OrbExtractor
-from ..optim.pose_graph import edge_chi2, make_graph_state, optimize
-from .device_step import StepSummary, slam_step
-from .host_graph import EDGE_CONST_POSITION, HostGraph
+from ..optim.pose_graph import (GraphState, edge_chi2, make_graph_state, optimize,
+                                 resolve_solver)
+from .compare import CompareResult, CompareSummary, compare_to_candidates
+from .device_step import StepSummary, commit_node, slam_step
+from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_edges,
+                         const_position_edge, decide_matches, inaffected_subgraph,
+                         is_redundant)
 from .ingest import compact_frame, prepare_and_extract
 from .node_store import NodeStore
 
 logger = logging.getLogger("rgbdslam.graph")
 
 
+def fast_path(p: ParameterServer) -> bool:
+    """Whether keep_all_nodes selects the device-decided fast path for the
+    frames after the first (with mapping on): no motion gate may need a
+    host decision."""
+    return (p["keep_all_nodes"] and p["min_translation_meter"] <= 0
+            and p["min_rotation_degree"] <= 0)
+
+
 def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
-    """Refuse configuration that selects a path this port does not have."""
+    """Refuse configuration that selects a path this port does not have.
+    The fast path's dispatch options (N frames a step, pipelined drains,
+    encode-ahead) are refused only where the fast path runs: off it the
+    JAX package ignores them too."""
     s = p["cloud_creation_skip_step"]
+    fast = fast_path(p)
     refused = {
-        "keep_all_nodes": not p["keep_all_nodes"],
         "tpu_ingest_format": p["tpu_ingest_format"] != "yc12",
         "tpu_gray_bits": p["tpu_gray_bits"] != 8,
         "tpu_depth_bits": p["tpu_depth_bits"] not in (10, 12),
-        "tpu_frames_per_step": p["tpu_frames_per_step"] > 1,
+        "tpu_frames_per_step": fast and p["tpu_frames_per_step"] > 1,
         "tpu_wire_delta": p["tpu_wire_delta"],
-        "tpu_drain_pipelined": p["tpu_drain_pipelined"],
-        "tpu_encode_ahead": p["tpu_encode_ahead"],
+        "tpu_drain_pipelined": fast and p["tpu_drain_pipelined"],
+        "tpu_encode_ahead": fast and p["tpu_encode_ahead"],
         "tpu_edge_info": p["tpu_edge_info"] != "scalar",
         "tpu_emm_exact": p["tpu_emm_exact"],
         "tpu_approx_select": p["tpu_approx_select"],
         "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] != "int8",
         "tpu_mesh_devices": p["tpu_mesh_devices"] > 1,
-        "pose_relative_to": p["pose_relative_to"] == "inaffected",
         "use_icp": p["use_icp"],
         "global_loop_candidates": p["global_loop_candidates"] > 0,
         "g2o_transformation_refinement": p["g2o_transformation_refinement"] > 0,
         "use_robot_odom": p["use_robot_odom"] or p["use_robot_odom_only"],
-        "min_translation_meter": p["min_translation_meter"] > 0,
-        "min_rotation_degree": p["min_rotation_degree"] > 0,
-        "clear_non_keyframes": p["clear_non_keyframes"],
         "depth_scaling_factor": p["depth_scaling_factor"] != 1.0,
         "octomap_online_creation": p["octomap_online_creation"],
         "start_paused": p["start_paused"],
-        "backend_solver": p["backend_solver"] == "pcg"
-        or (p["backend_solver"] == "auto" and p["tpu_max_nodes"] > 1024),
         "cloud_creation_skip_step": cam.height % (2 * s) != 0 or cam.width % (2 * s) != 0,
     }
     families = {p["feature_detector_type"].upper(), p["feature_extractor_type"].upper()}
@@ -75,9 +94,24 @@ def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
             "not in this port's slice: " + ", ".join(f"{k}={p[k]!r}" for k in bad))
 
 
+def _inaffected_kernel(graph: GraphState, gi, ge, li, lj, nfix, nact, eact, free_mask,
+                       iterations: int, huber_delta: float, pcg_iters: int,
+                       solver: str) -> torch.Tensor:
+    """Gather the affected subgraph, optimize it, scatter the free poses
+    back in place (pose_relative_to=inaffected, graph_manager.cpp:889-992).
+    Duplicate ids in gi (the padding) all write the same unchanged pose."""
+    sub = GraphState(
+        poses=graph.poses[gi], node_active=nact, node_fixed=nfix, edge_i=li, edge_j=lj,
+        edge_meas=graph.edge_meas[ge], edge_info=graph.edge_info[ge], edge_active=eact)
+    chi2, _ = optimize(sub, iterations=iterations, huber_delta=huber_delta,
+                       pcg_iters=pcg_iters, solver=solver)
+    graph.poses[gi] = torch.where(free_mask[:, None, None], sub.poses, graph.poses[gi])
+    return chi2
+
+
 class GraphManager:
     def __init__(self, cam: Intrinsics, params: Optional[ParameterServer] = None,
-                 device=None):
+                 device=None, extractor: Optional[OrbExtractor] = None):
         self.params = params or default_params()
         p = self.params
         check_slice(p, cam)
@@ -96,7 +130,7 @@ class GraphManager:
             if f not in ("ORB", "FAST", "BRIEF"):
                 logger.warning("feature family %s not built; falling back to ORB "
                                "(reference behavior, features.cpp:144-160)", f)
-        self.extractor = OrbExtractor(
+        self.extractor = extractor or OrbExtractor(
             max_keypoints=self.k_cap, fast_threshold=0.06,
             grid=p["detector_grid_resolution"] + 1,
             oriented=p["feature_extractor_type"].upper() != "BRIEF",
@@ -111,6 +145,18 @@ class GraphManager:
         self.generator.manual_seed(int(p["tpu_seed"]))
         self.nodes_since_optimize = 0
         self.last_optimize_iters = 0
+        self.solver_calls = {"dense": 0, "pcg": 0}  # optimize calls by solver
+        self.last_decisions: List[MatchDecision] = []
+        self.mapping_enabled = True  # toggleMapping (localization-only mode)
+        # localizationUpdate outputs (graph_manager.cpp:660-679)
+        self.localization_pose: Optional[np.ndarray] = None
+        self.localization_trajectory: List[tuple] = []
+        self._loc_poses_host: Optional[np.ndarray] = None  # frozen-map mirror
+        # pose_relative_to=inaffected: nodes optimized so far
+        self._nodes_opt_watermark = 0
+        # first-node replacement (graph_manager.cpp:762-769)
+        self._kp_count0 = -1
+        self._first_pose = np.eye(4, dtype=np.float32)
         self._pending: list = []  # (new_id, padded, edge_start, host summary)
 
     # ---- host state, read through the bookkeeping object ----------------
@@ -126,19 +172,29 @@ class GraphManager:
     def timestamps(self) -> List[float]:
         return self.host.timestamps
 
+    @property
+    def keyframes(self) -> List[int]:
+        return self.host.keyframes
+
     # ------------------------------------------------------------------
+    def _compare_kwargs(self) -> dict:
+        """Matching, RANSAC and EMM settings of compare_to_candidates."""
+        p = self.params
+        return dict(
+            max_matches=p["max_matches"], ratio=p["nn_distance_ratio"],
+            n_hypotheses=p["ransac_iterations"],
+            max_mahal_sq=p["max_dist_for_inliers"] ** 2,
+            min_inliers=p["min_matches"], emm_skip=p["emm_skip_step"],
+            sigma_depth=p["sigma_depth"], sample_size=p["sample_candidates"],
+            refine_iterations=p["refine_iterations"])
+
     def _step_cfg(self) -> dict:
         p = self.params
         return dict(
             extractor=self.extractor, cam=self.cam, cam_small=self.cam_small,
             stride=self.emm_stride, depth_bits=self.depth_bits,
             min_depth=p["minimum_depth"], max_depth=p["maximum_depth"],
-            max_matches=p["max_matches"], ratio=p["nn_distance_ratio"],
-            n_hypotheses=p["ransac_iterations"],
-            max_mahal_sq=p["max_dist_for_inliers"] ** 2,
-            min_inliers=p["min_matches"], emm_skip=p["emm_skip_step"],
-            sigma_depth=p["sigma_depth"], sample_size=p["sample_candidates"],
-            refine_iterations=p["refine_iterations"],
+            **self._compare_kwargs(),
             observability_threshold=p["observability_threshold"],
             max_translation_per_s=p["max_translation_meter"],
             max_rotation_deg_per_s=p["max_rotation_degree"],
@@ -157,10 +213,17 @@ class GraphManager:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _extract(self, packed):
+        p = self.params
+        return prepare_and_extract(
+            self.extractor, self.cam, self.emm_stride, p["minimum_depth"],
+            p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits)
+
     def add_frame(self, rgb, depth, timestamp: float,
                   ground_truth_pose: Optional[np.ndarray] = None, compact=None) -> bool:
         """Process one frame (rgb/depth, or a pre-packed yc12 buffer);
-        every frame enters the graph (keep_all_nodes)."""
+        returns True when the node entered the graph (in localization mode:
+        when the frame was localized)."""
         if compact is None:
             compact = compact_frame(rgb, depth, self.emm_stride, self.depth_bits)
         new_id = self.n_nodes
@@ -169,26 +232,135 @@ class GraphManager:
         packed = self._to_device(compact)
         if new_id == 0:
             self._add_first_frame(packed, timestamp, ground_truth_pose)
-        else:
+            return True
+        if self.mapping_enabled and fast_path(self.params):
             self._add_frame_device(packed, timestamp, new_id, new_id - 1)
-        return True
+            return True
+        return self._add_frame_host(packed, timestamp, new_id)
 
     def _add_first_frame(self, packed, timestamp, ground_truth_pose):
         """firstNode (graph_manager.cpp:360-402): fixed at GT or identity."""
-        p = self.params
-        kp, depth_small, color_small = prepare_and_extract(
-            self.extractor, self.cam, self.emm_stride, p["minimum_depth"],
-            p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits)
+        kp, depth_small, color_small = self._extract(packed)
         pose = (np.asarray(ground_truth_pose, np.float32) if ground_truth_pose is not None
                 else np.eye(4, dtype=np.float32))
         self.store.insert(0, kp, depth_small, color_small)
         self.graph.poses[0] = self._to_device(pose)
-        self.graph.node_active[0] = True
-        self.graph.node_fixed[0] = True
+        self.graph.node_active[0].fill_(True)
+        self.graph.node_fixed[0].fill_(True)
         self.host.n_nodes = 1
         self.host.timestamps.append(timestamp)
         self.host.keyframes = [0]
+        self._nodes_opt_watermark = 1
+        self.last_decisions = []
+        self._first_pose = pose  # kept for first-node replacement
+        self._kp_count0 = int(kp.count())
 
+    # ---- host-decision path ----------------------------------------------
+    def _compare_dispatch(self, kp, depth_small, cand_idx: torch.Tensor) -> CompareResult:
+        """Matching, RANSAC and EMM of the new frame against B stored nodes."""
+        return compare_to_candidates(
+            kp, depth_small, self.store, cand_idx, self.generator, self.cam_small,
+            cam_fx=self.cam.fx, cam_fy=self.cam.fy, **self._compare_kwargs())
+
+    def _add_frame_host(self, packed, timestamp: float, new_id: int) -> bool:
+        """nodeComparisons + addNode (graph_manager.cpp:421-809): compare on
+        the device, decide on the host. The frame waits for the card once:
+        the comparison result and the keypoint count come back in one copy."""
+        p = self.params
+        B = self.cand_batch
+        kp, depth_small, color_small = self._extract(packed)
+        cand_ids = self.host.select_candidates(new_id, B)
+        padded = (cand_ids + [cand_ids[0]] * B)[:B]
+        res = self._compare_dispatch(kp, depth_small,
+                                     self._to_device(np.asarray(padded, np.int64)))
+        cmp = CompareSummary.unpack(CompareSummary.pack(res, kp.count()).cpu().numpy(), B)
+        self._adapt_detector(cmp.n_valid_kp)
+
+        pred_id = new_id - 1
+        dt_pred = max(timestamp - self.timestamps[pred_id], 1e-3)
+        decisions, accepted = decide_matches(padded, cmp, timestamp, self.timestamps,
+                                             pred_id, p)
+        self.last_decisions = decisions
+
+        if not self.mapping_enabled:
+            return self._localize(padded, accepted, cmp, timestamp)
+        if is_redundant(padded, accepted, cmp, pred_id, dt_pred, p):
+            return False
+        base_id, base_T_new, edges = build_edges(
+            padded, accepted, cmp, pred_id, new_id,
+            self.host.geodesic_set(pred_id, p["geodesic_depth"]))
+        if not edges:
+            if p["keep_all_nodes"] or (p["keep_good_nodes"]
+                                       and cmp.n_valid_kp > p["min_keypoints"]):
+                edges.append(const_position_edge(pred_id, new_id, dt_pred, p))
+            else:
+                # first-node replacement (graph_manager.cpp:762-769): while the
+                # graph holds only the first node, an unmatched frame with
+                # more features replaces it. Posed as the JAX package does:
+                # poses[0] @ the first frame's pose.
+                if new_id == 1 and cmp.n_valid_kp > self._kp_count0:
+                    self._commit(kp, depth_small, color_small, 0, 0, self._first_pose, [])
+                    self.timestamps[0] = timestamp
+                    self._kp_count0 = cmp.n_valid_kp
+                return False
+
+        self._commit(kp, depth_small, color_small, new_id, base_id, base_T_new, edges)
+        self.host.n_nodes += 1
+        self.timestamps.append(timestamp)
+        self.host.add_keyframe([padded[b] for b in accepted], pred_id)
+        if p["clear_non_keyframes"]:
+            ids = self.host.non_keyframes_to_clear(new_id)
+            if ids is not None:
+                self.store.clear_features(self._to_device(np.asarray(ids, np.int64)))
+        self.nodes_since_optimize += 1
+        if self.nodes_since_optimize >= p["optimizer_skip_step"]:
+            self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
+                          pcg_iters=24)
+        return True
+
+    def _localize(self, padded, accepted, cmp, timestamp) -> bool:
+        """localizationUpdate (graph_manager.cpp:660-679): the pose from the
+        best accepted match against the frozen map; the graph does not grow."""
+        if not accepted:
+            return False
+        best_b = max(accepted, key=lambda b: cmp.n_inliers[b])
+        if self._loc_poses_host is None:
+            self._loc_poses_host = self.poses()
+        pose = (np.asarray(self._loc_poses_host[padded[best_b]], np.float32)
+                @ np.asarray(cmp.transform[best_b], np.float32))
+        self.localization_pose = pose
+        self.localization_trajectory.append((timestamp, pose))
+        return True
+
+    def _commit(self, kp, depth_small, color_small, new_id: int, base_id: int,
+                base_T_new: np.ndarray, edges) -> None:
+        """Node insert + pose + up to B+2 edges, written in place from one
+        host->device copy; then the host mirrors of the edges."""
+        B_e = self.cand_batch + 2
+        edges = edges[:B_e]
+        if self.n_edges + len(edges) > self.e_cap:
+            raise RuntimeError("edge capacity exceeded")
+        n = min(B_e, self.e_cap - self.n_edges)
+        # [base_T_new 16 | base_id | n rows of (i, j, active, meas 16, info 36)]
+        buf = np.zeros(17 + 55 * n, np.float32)
+        buf[:16] = np.asarray(base_T_new, np.float32).reshape(-1)
+        buf[16] = base_id
+        rows = buf[17:].reshape(n, 55)
+        rows[:, 3:19] = np.eye(4, dtype=np.float32).reshape(-1)
+        for k, (i, j, meas, info, _t) in enumerate(edges):
+            rows[k, :3] = (i, j, 1.0)
+            rows[k, 3:19] = np.asarray(meas, np.float32).reshape(-1)
+            rows[k, 19:] = np.asarray(info, np.float32).reshape(-1)
+        dev = self._to_device(buf)
+        e = dev[17:].view(n, 55)
+        commit_node(self.store, self.graph, new_id, kp, depth_small, color_small,
+                    dev[16:17].long(), dev[:16].view(4, 4), self.n_edges,
+                    e[:, 0].to(torch.int32), e[:, 1].to(torch.int32),
+                    e[:, 3:19].reshape(n, 4, 4), e[:, 19:].reshape(n, 6, 6), e[:, 2] > 0.5)
+        for (i, j, _m, _info, etype) in edges:
+            self.host.add_edge(i, j, etype)
+
+    # ---- keep-all fast path ----------------------------------------------
     def _add_frame_device(self, packed, timestamp, new_id, pred_id) -> None:
         p = self.params
         B = self.cand_batch
@@ -210,7 +382,8 @@ class GraphManager:
             self._drain_pending(keep_newest=2)
         self.nodes_since_optimize += 1
         if self.nodes_since_optimize >= p["optimizer_skip_step"]:
-            self.optimize(iterations=p["online_optimizer_iterations"], blocking=False)
+            self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
+                          pcg_iters=24)
 
     def _start_copy(self, summary: torch.Tensor):
         """Begin the summary's device->host copy; read at drain time."""
@@ -259,21 +432,64 @@ class GraphManager:
             self.extractor = dataclasses.replace(self.extractor, fast_threshold=new_t)
 
     # ------------------------------------------------------------------
+    def _solver(self, n_cap: int) -> str:
+        """backend_solver -> "dense" or "pcg" for a graph of n_cap nodes;
+        counted in solver_calls."""
+        name = {"cholesky": "dense", "dense": "dense", "pcg": "pcg"}.get(
+            self.params["backend_solver"], "auto")
+        solver = resolve_solver(name, n_cap)
+        self.solver_calls[solver] += 1
+        return solver
+
     def _apply_fixation(self) -> None:
-        self.graph.node_fixed.copy_(self._to_device(self.host.fixation_mask(self.n_cap)))
+        self.graph.node_fixed.copy_(self._to_device(self.host.fixation_mask(
+            self.n_cap, self._nodes_opt_watermark, self.mapping_enabled)))
+
+    def _optimize_inaffected(self, iterations: int, blocking: bool, pcg_iters: int) -> float:
+        """Subgraph-only optimization (pose_relative_to=inaffected): the
+        nodes added since the last optimize plus their fixed border,
+        gathered, optimized and scattered back (graph_manager.cpp:889-892,
+        969-992, 1031-1035)."""
+        h = self.host
+        sub = inaffected_subgraph(h.edge_i, h.edge_j, h.edge_active, self.n_edges,
+                                  self._nodes_opt_watermark)
+        if sub is None:
+            return 0.0
+        ncap, ecap = len(sub.gi), len(sub.ge)
+        # one host->device copy: [gi | nfix | nact | free_mask | ge | li | lj | eact]
+        buf = self._to_device(np.concatenate([
+            sub.gi, sub.nfix, sub.nact, sub.free_mask, sub.ge, sub.li, sub.lj, sub.eact,
+        ]).astype(np.int64))
+        nodes = buf[: 4 * ncap].view(4, ncap)
+        edges = buf[4 * ncap:].view(4, ecap)
+        chi2 = _inaffected_kernel(
+            self.graph, nodes[0], edges[0], edges[1].to(torch.int32),
+            edges[2].to(torch.int32), nodes[1].bool(), nodes[2].bool(), edges[3].bool(),
+            nodes[3].bool(), iterations=iterations, huber_delta=self.params["huber_delta"],
+            pcg_iters=pcg_iters, solver=self._solver(ncap))
+        return float(chi2) if blocking else float("nan")
 
     @torch.inference_mode()
-    def optimize(self, iterations: Optional[int] = None, blocking: bool = True) -> float:
+    def optimize(self, iterations: Optional[int] = None, blocking: bool = True,
+                 pcg_iters: Optional[int] = None) -> float:
         """LM pose-graph optimization over the committed nodes. The online
         call (blocking=False) drains all but the newest 2 summaries first,
         like the JAX package; it still waits for its own result."""
         self._drain_pending(keep_newest=0 if blocking else 2)
         p = self.params
         try:
+            if (p["pose_relative_to"] == "inaffected" and self.mapping_enabled
+                    and 1 < self._nodes_opt_watermark < self.n_nodes):
+                return self._optimize_inaffected(
+                    iterations or p["optimizer_iterations"], blocking,
+                    pcg_iters if pcg_iters is not None else 24)
+            solver = self._solver(self.n_cap)
             self._apply_fixation()
             chi2, n_it = optimize(
                 self.graph, iterations=iterations or p["optimizer_iterations"],
-                huber_delta=p["huber_delta"], n_nodes=self.n_nodes, n_edges=self.n_edges)
+                huber_delta=p["huber_delta"],
+                pcg_iters=pcg_iters if pcg_iters is not None else 64, solver=solver,
+                n_nodes=self.n_nodes, n_edges=self.n_edges)
             if blocking:
                 # the JAX package reports iterations of blocking calls only
                 self.last_optimize_iters = int(n_it)
@@ -281,6 +497,12 @@ class GraphManager:
             return float("nan")
         finally:
             self.nodes_since_optimize = 0
+            # an online optimize leaves the newest 2 summaries pending: their
+            # edges were not optimized, so the watermark stops at the oldest
+            # of them (else those nodes would stay fixed in every later
+            # inaffected optimize)
+            self._nodes_opt_watermark = (min(nid for nid, *_ in self._pending)
+                                         if self._pending else self.n_nodes)
 
     def _add_const_position_edge(self, i: int, j: int) -> None:
         if self.n_edges >= self.e_cap:
@@ -313,10 +535,46 @@ class GraphManager:
 
     # ------------------------------------------------------------------
     def poses(self) -> np.ndarray:
-        return self.graph.poses[: self.n_nodes].cpu().numpy()
+        """A host copy of the committed nodes' poses (never a view of the
+        graph, which later optimizes write in place)."""
+        return self.graph.poses[: self.n_nodes].cpu().numpy().copy()
 
     def trajectory(self):
         return list(self.timestamps), self.poses()
+
+    def reset(self) -> None:
+        """A fresh graph with the same camera, parameters, device and
+        (possibly adapted) extractor."""
+        self.__init__(self.cam, self.params, self.device, self.extractor)
+
+    def toggle_mapping(self, enabled: bool) -> None:
+        """Localization-only mode (graph_manager2.cpp:25-35): with mapping
+        off every node is fixed and frames only localize."""
+        self.mapping_enabled = enabled
+        if not enabled:
+            mask = np.zeros(self.n_cap, bool)
+            mask[: self.n_nodes] = True
+            self.graph.node_fixed.copy_(self._to_device(mask))
+            self._drain_pending()
+            self._loc_poses_host = self.poses()  # one pull; poses now frozen
+        else:
+            self._loc_poses_host = None
+
+    def delete_last_frame(self) -> None:
+        """deleteLastFrame (graph_manager2.cpp:61): remove the newest node
+        and its edges from the active graph."""
+        self._drain_pending()
+        if self.n_nodes <= 1:
+            return
+        nid = self.host.delete_last()
+        self.graph.edge_active.copy_(self._to_device(self.host.edge_active))
+        self.graph.node_active[nid].fill_(False)
+        self.store.clear_features(nid)
+
+    def clear_feature_information(self, node_id: int) -> None:
+        """clearFeatureInformation (node.cpp:1431): free a node's feature
+        slots."""
+        self.store.clear_features(int(node_id))
 
     def statistics(self) -> dict:
         self._drain_pending()

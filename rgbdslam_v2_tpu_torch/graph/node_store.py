@@ -39,7 +39,7 @@ class NodeStore:
 
     @classmethod
     def create(cls, n_cap: int, k_cap: int, desc_dim: int, emm_h: int, emm_w: int,
-               store_color: bool = True, device=None) -> "NodeStore":
+               store_color: bool = True, *, device) -> "NodeStore":
         color_len = emm_h * emm_w * 3 if store_color else 3
         kw = dict(device=device)
         return cls(
@@ -62,3 +62,15 @@ class NodeStore:
         self.depth[idx] = depth_small.reshape(-1)
         self.emm_lohi[idx] = emm_pool_maps(depth_small).reshape(-1)
         self.color[idx] = color_small.reshape(-1)[: self.color.shape[1]]
+
+    def clear_features(self, idx) -> None:
+        """Free feature slots in place (clearFeatureInformation): idx is a
+        node id or an index array (the batched clear_non_keyframes path).
+        A node id and a long tensor already on the device are cleared
+        without waiting for the card."""
+        if isinstance(idx, int):
+            self.kp_valid[idx].fill_(False)
+        else:
+            self.kp_valid.index_fill_(
+                0, torch.as_tensor(idx, dtype=torch.long, device=self.kp_valid.device).reshape(-1),
+                False)

@@ -1,8 +1,10 @@
 """SLAM pipeline: frames -> graph -> trajectories, and the 5-level protocol.
 
-Port of ``rgbdslam_v2_tpu/pipeline/slam.py``: ``SlamPipeline.process_frame``,
-``run_arrays`` (single-frame dispatch) and ``evaluation_protocol``, with
-``EvaluationReport``. The per-frame work runs under ``torch.inference_mode``.
+Port of ``rgbdslam_v2_tpu/pipeline/slam.py``: ``SlamPipeline.process_frame``
+(without the paused and live-view state), ``run_arrays`` (single-frame
+dispatch) and ``evaluation_protocol``, with ``EvaluationReport``. The
+per-frame work runs under ``torch.inference_mode``. With no ``device`` the
+pipeline runs on the CUDA card, or raises where there is none.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ class SlamPipeline:
         self.manager = GraphManager(cam, self.params, device=device)
         self.device = self.manager.device
         self.n_processed = 0
+        self.n_dropped = 0  # frames that did not enter the graph
         self.wall_time = 0.0
 
     @torch.inference_mode()
@@ -55,6 +58,8 @@ class SlamPipeline:
         took = self.manager.add_frame(rgb, depth, timestamp, gt_pose, compact=compact)
         self.wall_time += time.perf_counter() - t0
         self.n_processed += 1
+        if not took:
+            self.n_dropped += 1
         return took
 
     def run_arrays(self, rgbs, depths, stamps, gt_poses=None) -> None:

@@ -1,12 +1,20 @@
 """GraphManager behaviour of the port that needs no JAX oracle: which
 optimize calls report their iteration count (the JAX package's rule, set at
-rgbdslam_v2_tpu/graph/manager.py in GraphManager.optimize)."""
+rgbdslam_v2_tpu/graph/manager.py in GraphManager.optimize), and, on the
+card (marker `cuda`), that the default configuration's host-decision path
+waits for the card once a frame. Imports no JAX, so it runs on the card:
+
+    python -m pytest --noconftest tests/test_torch_manager.py -q
+"""
+import warnings
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from rgbdslam_v2_tpu_torch.config import ParameterServer
-from rgbdslam_v2_tpu_torch.core.camera import Intrinsics
+from rgbdslam_v2_tpu_torch.config import ParameterServer, default_params
+from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT, Intrinsics
 from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
@@ -36,3 +44,72 @@ def test_only_a_blocking_optimize_reports_its_iterations(manager):
     chi2 = manager.optimize(blocking=True)
     assert np.isfinite(chi2)
     assert 1 <= manager.last_optimize_iters <= manager.params["optimizer_iterations"]
+
+
+def _sync_sites(fn):
+    """Run fn with CUDA sync debugging on; the files whose lines made each
+    synchronizing call, in order: relative to the package for the port's,
+    "outside" for others."""
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    pkg = Path(__file__).resolve().parents[1] / "rgbdslam_v2_tpu_torch"
+    out = []
+    for w in rec:
+        if "synchroniz" in str(w.message):
+            f = Path(w.filename).resolve()
+            out.append(f.relative_to(pkg).as_posix() if f.is_relative_to(pkg) else "outside")
+    return out
+
+
+@pytest.mark.cuda
+def test_default_path_reads_the_card_once_a_frame():
+    """default_params() with no device argument on the card, 30 frames of
+    640x480: each add_frame's decisions come from ONE device->host copy,
+    made in graph/manager.py (the comparison result and the keypoint count
+    packed together). The online optimize, which reads its convergence
+    flag, runs outside the count. The only other synchronizing calls
+    allowed are the SVD refits' status checks (core/alignment.py, ROADMAP
+    F6), backend.constant's one-time copy of a new constant, and on the
+    first frame torch's own one-time CUDA setup."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    world = SyntheticWorld.create(seed=0, cam=TUM_DEFAULT)
+    poses, rgbs, depths = render_sequence(world, 30, seed=2, depth_noise_sigma=0.01,
+                                          device="cuda")
+    pipe = SlamPipeline(TUM_DEFAULT, default_params())
+    mgr = pipe.manager
+    assert mgr.device.type == "cuda"
+    online = mgr.optimize
+
+    def unwatched_optimize(*args, **kw):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return online(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    mgr.optimize = unwatched_optimize
+    per_frame = [_sync_sites(lambda: pipe.process_frame(
+        rgbs[i], depths[i], i / 30.0, gt_pose=poses[0] if i == 0 else None))
+        for i in range(len(rgbs))]
+    allowed = {"graph/manager.py", "core/alignment.py", "backend.py"}
+    for i, sites in enumerate(per_frame):
+        assert sites.count("graph/manager.py") == 1, (i, sites)
+        assert set(sites) <= (allowed | {"outside"} if i == 0 else allowed), (i, sites)
+    assert mgr.n_nodes + pipe.n_dropped == len(rgbs) and mgr.n_nodes > 20
+    assert mgr.solver_calls["pcg"] == mgr.n_nodes - 1 and mgr.solver_calls["dense"] == 0
+    # the rest of the manager on the card: delete the newest node, then
+    # localize its frame against the frozen map
+    del mgr.optimize
+    n = mgr.n_nodes
+    mgr.delete_last_frame()
+    assert mgr.n_nodes == n - 1 and not bool(mgr.store.kp_valid[n - 1].any())
+    assert not bool(mgr.graph.node_active[n - 1])
+    mgr.toggle_mapping(False)
+    assert pipe.process_frame(rgbs[-1], depths[-1], len(rgbs) / 30.0)
+    assert mgr.n_nodes == n - 1 and np.isfinite(mgr.localization_pose).all()

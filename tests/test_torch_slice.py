@@ -74,8 +74,8 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"keep_all_nodes": False}, {"tpu_ingest_format": "ydct"}, {"tpu_frames_per_step": 2},
-    {"pose_relative_to": "inaffected"}, {"use_icp": True}, {"global_loop_candidates": 2},
+    {"use_robot_odom": True}, {"tpu_ingest_format": "ydct"}, {"tpu_frames_per_step": 2},
+    {"tpu_encode_ahead": True}, {"use_icp": True}, {"global_loop_candidates": 2},
     {"tpu_wire_delta": True}, {"feature_extractor_type": "SIFT"},
     {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
     {"g2o_transformation_refinement": 2}, {"tpu_drain_pipelined": True},
@@ -84,6 +84,19 @@ def test_config_outside_the_slice_raises(override):
     name = next(iter(override))
     with pytest.raises(NotImplementedError, match=name):
         SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"keep_all_nodes": False}, {"pose_relative_to": "inaffected"},
+    {"min_translation_meter": 0.1, "min_rotation_degree": 5.0}, {"clear_non_keyframes": True},
+    {"backend_solver": "pcg"},
+    # off the keep-all fast path the JAX package ignores its dispatch options
+    {"keep_all_nodes": False, "tpu_drain_pipelined": True, "tpu_frames_per_step": 2,
+     "tpu_encode_ahead": True},
+])
+def test_config_inside_the_port_builds(override):
+    pipe = SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")
+    assert pipe.device.type == "cpu"
 
 
 def test_torch_renderer_matches_jax(world, sequence):
