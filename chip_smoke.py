@@ -6,7 +6,8 @@ Usage: python3 chip_smoke.py [--frames N]
 Phases, each printing one or more lines; any failed check exits non-zero
 and prints no result:
   1. device and build: the card's name and power limit (nvidia-smi), torch
-     and CUDA versions, and the time to build csrc/detect_corners.cu;
+     and CUDA versions, and the time to build csrc/detect_corners.cu and
+     csrc/kabsch.cu (one nvcc a source, started together);
   2. kernel against plain: the one-launch detect kernel on the four pyramid
      levels of a 640x480 frame the port renders, against its plain torch
      version on each level, at thresholds 0.06, 0.015 and 0.001875 (the
@@ -18,9 +19,20 @@ and prints no result:
      included), the same for the plain version, and the bound (bytes read
      and written at 3.35 TB/s, or float operations at 67 TFLOP/s, the
      larger) with the kernel's share of it; and the device time of the
-     whole detect stage of a frame, the pyramid's resizes included;
+     whole detect stage of a frame, the pyramid's resizes included. The
+     Kabsch kernel against its plain version (torch.linalg.svd + det, run
+     in float64 on the same inputs; its float32 difference is printed too)
+     on 1000 random well-conditioned problems at N = 64 and at N = 300 (R
+     within KABSCH_TOL, t within KABSCH_TOL m), all-zero weights (R = I, t
+     = 0) and collinear points (a proper rotation); then its device time at
+     the main path's shape (8 candidates x 300 matches) beside the plain
+     version's and beside torch.linalg.svd + det of the same 8 matrices,
+     and its bound;
   3. main path: the bench sequence (orbit in the synthetic room, 640x480,
-     depth noise 0.01 z^2 with 1/5000 m quantization) rendered on the card,
+     depth noise 0.01 z^2 with 1/5000 m quantization) rendered on the card;
+     the ydct luma decode on the card against the numpy decoder on its
+     first 20 frames at quality 2.7 (equal, or at most 1 grey level apart,
+     or it fails); the sequence
      run through SlamPipeline(device="cuda") in the keep-all configuration
      (ORB-600 over 4 levels, 8 candidates, RANSAC-200, EMM on); prints fps
      over the frames after the 20 warm-up frames, the graph statistics and
@@ -39,10 +51,27 @@ and prints no result:
      1), the median ms of one online optimize (host clock, synchronized),
      peak device memory and the protocol's ATE L0..L4 (finite, L4 at most
      DEFAULT_ATE_L4_MAX), and fails if any optimize used the dense solver.
-     Phases 3-4 are not cut: the whole run stays within twice the time of
-     the run before phase 5 was added.
+  6. bench configuration: bench.py's make_pipe parameters exactly as it
+     sets them (make_pipe_params: ydct 2.7 luma, 10-bit depth, 4 frames a
+     step replayed as CUDA graphs, encode-ahead, pipelined drains,
+     inaffected online optimize every 10 frames) on the same sequence, 20
+     warm-up frames one at a time as bench.py feeds them, then the rest
+     through run_arrays: fps, the graph (nodes, active edges,
+     constant-position edges), detect launches (must equal the frames),
+     Kabsch launches a frame (must equal refine_iterations), CUDA graphs
+     captured, eager warm-up groups and replays, synchronizing calls
+     (torch.cuda.set_sync_debug_mode) in the timed groups that only
+     replayed (must be 0) and in those that warmed up or captured a graph,
+     peak device memory, and the protocol's ATE L0..L4 (L4 at most 0.03 m);
+  7. grouped equality: make_pipe_params with 4 candidates (the 4
+     predecessors, so candidates do not depend on when drains land) and no
+     online optimize, 4 frames a step replayed against 1 frame a step
+     eager, on the first 60 frames: trajectories within 1e-6, equal graph
+     statistics, and at least one replay, or it fails.
+
 Before the last line it prints one JSON object with the kernels' measured
-numbers; the last line is {"ok": true, "device": {...}}.
+numbers (launches from phase 6's run, the bench configuration); the last
+line is {"ok": true, "device": {...}}.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -56,6 +85,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -65,6 +95,16 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # float operations a pixel of the plain version: Sobel 20 + products 3 +
 # two 5-tap blurs of three maps 54 + Harris 7 + FAST 2 + 32 compares + NMS 9
 DETECT_OPS_PER_PX = 127
+# float operations of one weighted Kabsch fit: 41 a point (clamp, the
+# weighted sums, centring and the 3x3 outer products) and ~1200 for the 3x3
+# part (H^T H, about five Jacobi sweeps, the rotation)
+KABSCH_OPS_PER_POINT = 41
+KABSCH_OPS_PER_PROBLEM = 1200
+# R entries and t (m), kernel against the plain version in float64 (in
+# float32 the plain version's own rounding reaches ~1.1e-5 m in t at the
+# test problems' 2-6 m centroids)
+KABSCH_TOL = 1e-5
+EQUAL_FRAMES = 60  # frames of the grouped-equality phase
 ATE_L4_MAX = 0.03  # metres
 # The default configuration closes no loop (its 8 candidate slots go to 4
 # predecessors and 4 geodesic neighbours, none to sampled keyframes), so it
@@ -124,6 +164,124 @@ def fmt_ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
+def make_pipe_params(**over):
+    """bench.py's make_pipe configuration (bench.py:170-207, n_nodes=1024,
+    n_edges=8192), parameter for parameter; `over` changes only the
+    equality phase's copy."""
+    from rgbdslam_v2_tpu_torch.config import ParameterServer
+
+    return ParameterServer({**dict(
+        max_keypoints=600, tpu_max_nodes=1024, tpu_max_edges=8192, tpu_candidate_batch=8,
+        ransac_iterations=200, optimizer_skip_step=10, keep_all_nodes=True,
+        observability_threshold=0.5, pose_relative_to="inaffected", emm_skip_step=4,
+        tpu_ingest_format="ydct", tpu_dct_quality="2.7", tpu_gray_bits=8, tpu_depth_bits=10,
+        tpu_frames_per_step=4, tpu_encode_ahead=True,
+    ), **over})
+
+
+def kabsch_problems(rng, B, N):
+    """B rigid problems of N points (numpy-seeded): a random rotation and
+    shift, 1 cm of noise, weights in [0, 1) with ~30% zeros."""
+    import numpy as np
+
+    src = rng.normal(0.0, 1.0, (B, N, 3)) + rng.normal(0.0, 2.0, (B, 1, 3))
+    q = rng.normal(size=(B, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    R = np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], 1)
+    dst = (src @ R.transpose(0, 2, 1) + rng.normal(0.0, 1.0, (B, 1, 3))
+           + rng.normal(0.0, 0.01, (B, N, 3)))
+    wts = rng.uniform(0.0, 1.0, (B, N)) * (rng.uniform(size=(B, N)) > 0.3)
+    return [a.astype(np.float32) for a in (src, dst, wts)]
+
+
+def sync_sites(fn) -> list:
+    """Run fn with CUDA sync debugging on; "file:line" of each synchronizing
+    call it made."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in rec
+            if "synchroniz" in str(w.message)]
+
+
+def bench_config_run(poses, rgbs, depths, stamps, dev, **over) -> dict:
+    """Phase 6: make_pipe_params(**over) on the sequence as bench.py drives
+    it (20 warm-up frames one at a time, a blocking optimize, the rest
+    through run_arrays, then the protocol), with the kernels' launches
+    counted from 0 and the synchronizing calls of each timed group
+    recorded."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
+    from rgbdslam_v2_tpu_torch.ops import detect
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    frames = len(rgbs)
+    torch.cuda.reset_peak_memory_stats()
+    detect.reset_launches()
+    alignment.reset_launches()
+    pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
+    mgr = pipe.manager
+    for i in range(WARMUP):  # as bench.py warms up: one frame at a time
+        pipe.process_frame(rgbs[i], depths[i], float(stamps[i]),
+                           gt_pose=poses[0] if i == 0 else None)
+    mgr.optimize(blocking=True)
+    group, sg = pipe._process_group, mgr.step_graph
+    syncs = {"replay": [], "setup": []}  # per timed group: sites of its syncs
+
+    def watched_group(*a, **kw):
+        before = (sg.captures, sg.eager_groups)
+        sites = sync_sites(lambda: group(*a, **kw))
+        syncs["replay" if (sg.captures, sg.eager_groups) == before else "setup"].append(sites)
+
+    pipe._process_group = watched_group
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.params.set("skip_first_n_frames", WARMUP)
+    pipe.run_arrays(rgbs, depths, stamps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del pipe._process_group
+    out = dict(
+        fps=(frames - WARMUP) / dt, ms_per_frame=1e3 * dt / (frames - WARMUP),
+        detect_launches=detect.LAUNCHES, kabsch_launches=alignment.LAUNCHES,
+        captures=sg.captures, eager_groups=sg.eager_groups, replays=sg.replays,
+        replay_host_ms=1e3 * sg.replay_s / max(sg.replays, 1),
+        replay_groups=len(syncs["replay"]), setup_groups=len(syncs["setup"]),
+        replay_syncs=sum(len(x) for x in syncs["replay"]),
+        replay_sites=[x for g in syncs["replay"] for x in g],
+        setup_sites=[x for g in syncs["setup"] for x in g],
+        stats=mgr.statistics(),
+        const_edges=sum(t == EDGE_CONST_POSITION for t in mgr.host.edge_types),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    t0 = time.perf_counter()
+    for i in range(WARMUP):
+        mgr.encode(rgbs[i], depths[i])
+    out["encode_ms"] = 1e3 * (time.perf_counter() - t0) / WARMUP
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        rep = pipe.evaluation_protocol(td, gt_stamps=list(stamps), gt_xyz=poses[:, :3, 3])
+    out["protocol_s"] = time.perf_counter() - t0
+    est = mgr.poses()
+    out["poses_ok"] = est.shape == (frames, 4, 4) and bool(np.isfinite(est).all())
+    out["ate"] = [rep.ate_rmse.get(lvl, float("nan")) for lvl in range(5)]
+    return out
+
+
 def bench_params():
     """The keep-all VGA cell: bench.py's make_pipe with the ported slice's
     path selectors (yc12 ingest, one frame per step, no encode-ahead,
@@ -170,11 +328,13 @@ def main() -> None:
 
     from rgbdslam_v2_tpu_torch import backend
     from rgbdslam_v2_tpu_torch.config import default_params
+    from rgbdslam_v2_tpu_torch.core import alignment
     from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.graph import ingest
     from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
     from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
     from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor
-    from rgbdslam_v2_tpu_torch.ops import detect, fast
+    from rgbdslam_v2_tpu_torch.ops import dct_wire, detect, fast
     from rgbdslam_v2_tpu_torch.ops.image import resize_bilinear
     from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
@@ -190,12 +350,13 @@ def main() -> None:
     smi_line = smi.stdout.strip().splitlines()[0]
     phase(smi_line)
     t0 = time.perf_counter()
-    lib_path = backend.build_kernel_library("detect_corners")
-    backend.load_kernel_library("detect_corners")
+    lib_paths = backend.build_kernel_libraries(["detect_corners", "kabsch"])
+    for name in ("detect_corners", "kabsch"):
+        backend.load_kernel_library(name)
     build_s = time.perf_counter() - t0
     phase(f"[1 device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
-          f"| CUDA {torch.version.cuda} | detect_corners built in {build_s:.2f} s "
-          f"({lib_path.name})")
+          f"| CUDA {torch.version.cuda} | detect_corners and kabsch built in parallel in "
+          f"{build_s:.2f} s ({', '.join(p.name for p in lib_paths)})")
 
     # ---- 2. kernel against plain: the frame's 4 levels, one launch ------
     world = SyntheticWorld.create(seed=WORLD_SEED, cam=TUM_DEFAULT)
@@ -258,12 +419,88 @@ def main() -> None:
         phase(f"[2 kernel] pyramid + detect stage a frame (three resizes written in place, one "
               f"launch): device {fmt_ms(stage)} (profiler, mean of 20)")
 
+        # the Kabsch kernel against its plain version
+        kab_err = 0.0
+        for n_pts in (64, 300):
+            src, dst, w = (torch.from_numpy(a).to(dev)
+                           for a in kabsch_problems(np.random.default_rng(n_pts), 1000, n_pts))
+            got = alignment.weighted_kabsch(src, dst, w)
+            ref = alignment.weighted_kabsch_plain(src.double(), dst.double(),
+                                                  w.double()).float()
+            ref32 = alignment.weighted_kabsch_plain(src, dst, w)
+            torch.cuda.synchronize()
+            err_r = float((got[:, :3, :3] - ref[:, :3, :3]).abs().max())
+            err_t = float((got[:, :3, 3] - ref[:, :3, 3]).abs().max())
+            err32 = [float((got[:, :3, c] - ref32[:, :3, c]).abs().max())
+                     for c in (slice(0, 3), 3)]
+            phase(f"[2 kabsch] 1000 problems of {n_pts} points, against the plain version in "
+                  f"float64: max abs err R {err_r:.3e}, t {err_t:.3e} m (limit {KABSCH_TOL}); "
+                  f"against it in float32: R {err32[0]:.3e}, t {err32[1]:.3e} m")
+            if not (err_r <= KABSCH_TOL and err_t <= KABSCH_TOL):
+                fail(f"Kabsch kernel differs from the plain version at N={n_pts}: "
+                     f"R {err_r:.3e}, t {err_t:.3e}")
+            kab_err = max(kab_err, err_r, err_t)
+        zero = alignment.weighted_kabsch(src[:8], dst[:8], torch.zeros_like(w[:8]))
+        zero_ref = alignment.weighted_kabsch_plain(src[:8], dst[:8], torch.zeros_like(w[:8]))
+        line = torch.linspace(-1.0, 1.0, 300, device=dev)[:, None] * torch.tensor(
+            [0.3, -0.5, 0.8], device=dev)
+        rank1 = alignment.weighted_kabsch(line[None], 0.5 * line[None] + 2.0,
+                                          torch.ones(1, 300, device=dev))[0, :3, :3].double()
+        orth = float((rank1 @ rank1.T - torch.eye(3, device=dev, dtype=torch.float64))
+                     .abs().max())
+        det1 = float(torch.linalg.det(rank1))
+        phase(f"[2 kabsch] zero weights: kernel R = I and t = 0: "
+              f"{bool(torch.equal(zero, torch.eye(4, device=dev).expand(8, 4, 4)))}, plain "
+              f"version equal: {bool(torch.equal(zero, zero_ref))}; collinear points: "
+              f"|R R^T - I| {orth:.2e}, det R {det1:.6f}")
+        if not torch.equal(zero, torch.eye(4, device=dev).expand(8, 4, 4)):
+            fail("Kabsch kernel with zero weights is not the identity")
+        if not (orth < KABSCH_TOL and abs(det1 - 1.0) < KABSCH_TOL):
+            fail(f"Kabsch kernel on collinear points is not a rotation: {orth}, {det1}")
+        # timing at the main path's shape: 8 candidates x max_matches 300
+        src, dst, w = (torch.from_numpy(a).to(dev)
+                       for a in kabsch_problems(np.random.default_rng(8), 8, 300))
+        H, _, _ = alignment._centered_cross_cov(src, dst, w)
+        kab_times = {
+            "kernel": (device_ms(lambda: alignment.weighted_kabsch(src, dst, w)),
+                       median_ms(lambda: alignment.weighted_kabsch(src, dst, w))),
+            "plain": (device_ms(lambda: alignment.weighted_kabsch_plain(src, dst, w)),
+                      median_ms(lambda: alignment.weighted_kabsch_plain(src, dst, w))),
+            "library": (device_ms(lambda: torch.linalg.det(torch.linalg.svd(H)[0])),
+                        median_ms(lambda: torch.linalg.det(torch.linalg.svd(H)[0]))),
+        }
+        kab_bytes_ms = (8 * 300 * 7 * 4 + 8 * 16 * 4) / HBM_BYTES_PER_S * 1e3
+        kab_ops_ms = (8 * 300 * KABSCH_OPS_PER_POINT + 8 * KABSCH_OPS_PER_PROBLEM) \
+            / FP32_OPS_PER_S * 1e3
+        kab_bound = max(kab_bytes_ms, kab_ops_ms)
+        kab_by = "bytes" if kab_bytes_ms >= kab_ops_ms else "operations"
+        phase(f"[2 kabsch] 8 x 300 (one refit of the main path): kernel device "
+              f"{fmt_ms(kab_times['kernel'][0])}, event span {kab_times['kernel'][1]:.4f} ms; "
+              f"plain device {fmt_ms(kab_times['plain'][0])}, event span "
+              f"{kab_times['plain'][1]:.4f} ms; torch.linalg.svd + det alone device "
+              f"{fmt_ms(kab_times['library'][0])}, event span {kab_times['library'][1]:.4f} ms; "
+              f"bound {kab_bound * 1e3:.4f} us ({kab_by})")
+
     # ---- 3. main path --------------------------------------------------
     t0 = time.perf_counter()
     poses, rgbs, depths, stamps = render_bench(world, args.frames, dev)
     phase(f"[3 main] rendered {args.frames} frames 640x480 on the card in "
           f"{time.perf_counter() - t0:.1f} s")
+    spec = dct_wire.spec("2.7")
+    n_luma = dct_wire.dct_luma_len(480, 640, spec)
+    worst, n_diff = 0, 0
+    for i in range(0, 20):
+        wire = ingest.compact_frame(rgbs[i], depths[i], 2, 10, spec)[:n_luma]
+        ref = dct_wire.decode_luma_dct_np(wire, 480, 640, spec).astype(np.int16)
+        got = dct_wire.decode_luma_dct_dev(torch.from_numpy(wire).to(dev), 480, 640, spec)
+        diff = np.abs(got.cpu().numpy().astype(np.int16) - ref)
+        worst, n_diff = max(worst, int(diff.max())), n_diff + int((diff > 0).sum())
+    phase(f"[3 ydct] luma decode on the card vs numpy, 20 frames at quality 2.7: "
+          f"{n_diff} pixels differ, max difference {worst}")
+    if worst > 1:
+        fail(f"ydct decode on the card differs from numpy by {worst} grey levels")
     detect.reset_launches()  # count only the main path's launches
+    alignment.reset_launches()
     pipe = SlamPipeline(TUM_DEFAULT, bench_params(), device=dev)
     for i in range(WARMUP):
         pipe.process_frame(rgbs[i], depths[i], float(stamps[i]),
@@ -276,6 +513,7 @@ def main() -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = detect.LAUNCHES
+    kab_launches_keepall = alignment.LAUNCHES
     fps = (args.frames - WARMUP) / dt
     stats = pipe.manager.statistics()
     phase(f"[3 main] {fps:.2f} fps over {args.frames - WARMUP} frames "
@@ -290,7 +528,10 @@ def main() -> None:
     if launches != pipe.n_processed:
         fail(f"detect kernel launched {launches} times, expected one a frame "
              f"({pipe.n_processed})")
-    n_main = pipe.n_processed
+    refits = pipe.params["refine_iterations"]
+    if kab_launches_keepall != refits * (pipe.n_processed - 1):
+        fail(f"Kabsch kernel launched {kab_launches_keepall} times, expected {refits} a "
+             f"frame after the first")
 
     # ---- 4. protocol ---------------------------------------------------
     t0 = time.perf_counter()
@@ -312,6 +553,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     detect.reset_launches()
+    alignment.reset_launches()
     pipe = SlamPipeline(TUM_DEFAULT, default_params(), device=dev)
     mgr = pipe.manager
     online_ms = []
@@ -336,6 +578,7 @@ def main() -> None:
     dt = time.perf_counter() - t0
     del mgr.optimize
     launches_default = detect.LAUNCHES
+    kab_launches_default = alignment.LAUNCHES
     fps_default = (n_default - WARMUP) / dt
     stats = mgr.statistics()
     n_const = sum(t == EDGE_CONST_POSITION for t in mgr.host.edge_types)
@@ -355,6 +598,10 @@ def main() -> None:
     if launches_default != pipe.n_processed:
         fail(f"detect kernel launched {launches_default} times on the default path, "
              f"expected one a frame ({pipe.n_processed})")
+    if kab_launches_default != refits * (pipe.n_processed - 1):
+        fail(f"Kabsch kernel launched {kab_launches_default} times on the default path, "
+             f"expected {refits} a frame after the first")
+    n_default_frames = pipe.n_processed
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
         rep = pipe.evaluation_protocol(td, gt_stamps=list(stamps[sl]),
@@ -374,6 +621,65 @@ def main() -> None:
     if ate_d[4] > DEFAULT_ATE_L4_MAX:
         fail(f"default-configuration ATE L4 {ate_d[4]:.4f} m above {DEFAULT_ATE_L4_MAX:.4f} m")
 
+    # ---- 6. bench configuration: make_pipe as bench.py writes it ---------
+    del pipe, mgr, online, timed_optimize  # the closure holds the manager
+    torch.cuda.empty_cache()
+    b = bench_config_run(poses, rgbs, depths, stamps, dev)
+    launches_bench, kab_launches_bench = b["detect_launches"], b["kabsch_launches"]
+    stats = b["stats"]
+    phase(f"[6 bench] make_pipe as bench.py sets it (ydct 2.7, 4 frames a step, encode-ahead, "
+          f"pipelined drains, inaffected): {b['fps']:.2f} fps over {args.frames - WARMUP} "
+          f"frames ({b['ms_per_frame']:.2f} ms/frame, host encode included); nodes "
+          f"{stats['nodes']}, edges {stats['edges']} ({stats['active_edges']} active, "
+          f"{stats['sequential_edges']} sequential, {stats['loop_edges']} loop, "
+          f"{b['const_edges']} constant-position), keyframes {stats['keyframes']}")
+    phase(f"[6 bench] detect launches {launches_bench} for {args.frames} frames; Kabsch "
+          f"launches {kab_launches_bench} = {kab_launches_bench / (args.frames - 1):.3f} a "
+          f"frame after the first; CUDA graphs captured {b['captures']}, eager warm-up groups "
+          f"{b['eager_groups']}, replays {b['replays']} (host {b['replay_host_ms']:.3f} ms a "
+          f"replay call); synchronizing calls: {b['replay_syncs']} in {b['replay_groups']} "
+          f"replayed groups, {len(b['setup_sites'])} in {b['setup_groups']} warm-up/capture "
+          f"groups ({sorted(set(b['setup_sites']))}); host ydct encode "
+          f"{b['encode_ms']:.3f} ms/frame (main thread, 20 frames, outside the run); peak "
+          f"device memory {b['peak_gib']:.2f} GiB")
+    if stats["nodes"] != args.frames:
+        fail(f"bench configuration: {stats['nodes']} nodes for {args.frames} frames")
+    if launches_bench != args.frames:
+        fail(f"bench configuration: detect launched {launches_bench} times for "
+             f"{args.frames} frames")
+    if kab_launches_bench != refits * (args.frames - 1):
+        fail(f"bench configuration: Kabsch launched {kab_launches_bench} times, expected "
+             f"{refits} a frame after the first")
+    if not b["replays"] or b["replay_syncs"]:
+        fail(f"bench configuration: {b['replays']} replays, {b['replay_syncs']} synchronizing "
+             f"calls in replayed groups ({sorted(set(b['replay_sites']))})")
+    ate_b = b["ate"]
+    phase(f"[6 bench] protocol ATE L0..L4 {' / '.join(f'{a:.4f}' for a in ate_b)} m "
+          f"(in {b['protocol_s']:.1f} s; limit L4 <= {ATE_L4_MAX})")
+    if not b["poses_ok"]:
+        fail("bench-configuration trajectory has the wrong shape or non-finite poses")
+    if not all(np.isfinite(ate_b)) or ate_b[4] > ATE_L4_MAX:
+        fail(f"bench-configuration ATE {ate_b}: not finite or L4 above {ATE_L4_MAX} m")
+
+    # ---- 7. grouped replay against one frame a step, eager ----------------
+    runs = {}
+    sl = slice(0, EQUAL_FRAMES)
+    for n in (1, 4):
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(
+            tpu_candidate_batch=4, optimizer_skip_step=100, tpu_frames_per_step=n),
+            device=dev)
+        pipe.run_arrays(rgbs[sl], depths[sl], stamps[sl], gt_poses=poses[sl])
+        runs[n] = (pipe.manager.poses(), pipe.manager.statistics(),
+                   pipe.manager.step_graph.replays)
+        del pipe
+    diff = float(np.abs(runs[4][0] - runs[1][0]).max())
+    phase(f"[7 equal] 4 frames a step replayed ({runs[4][2]} replays) vs 1 frame a step "
+          f"eager, {EQUAL_FRAMES} frames: max pose difference {diff:.3e}; active edges "
+          f"{runs[4][1]['active_edges']} vs {runs[1][1]['active_edges']}; statistics equal: "
+          f"{runs[4][1] == runs[1][1]}")
+    if not runs[4][2] or diff > 1e-6 or runs[4][1] != runs[1][1]:
+        fail("the replayed groups differ from the eager steps")
+
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s")
     (dk, ek), (dp, ep) = times["frame"], times["frame_plain"]
     bound, by = times["frame_bound"]
@@ -382,10 +688,11 @@ def main() -> None:
         "route": "cuda",
         "source": "rgbdslam_v2_tpu_torch/csrc/detect_corners.cu",
         "replaces": "rgbdslam_v2_tpu/ops/pallas_detect.py:122",
-        "launches": launches,
-        "launches_per_frame": launches / n_main,
+        "launches": launches_bench,
+        "launches_per_frame": launches_bench / args.frames,
+        "launches_keepall_one_frame_a_step": launches,
         "launches_default": launches_default,
-        "launches_per_frame_default": launches_default / pipe.n_processed,
+        "launches_per_frame_default": launches_default / n_default_frames,
         "max_abs_err": max_abs,
         # one frame's four levels, profiler device time (null where the trace
         # held no device activity; the event spans below include the host)
@@ -399,6 +706,26 @@ def main() -> None:
         "level0_ms": times["level0"][0],
         "level0_bound_ms": times["level0_bound"][0],
         "stage_ms": stage,
+    }, {
+        "name": "weighted_kabsch",
+        "route": "cuda",
+        "source": "rgbdslam_v2_tpu_torch/csrc/kabsch.cu",
+        "replaces": "rgbdslam_v2_tpu/core/alignment.py:18",
+        "launches": kab_launches_bench,
+        "launches_per_frame": kab_launches_bench / (args.frames - 1),
+        "launches_keepall_one_frame_a_step": kab_launches_keepall,
+        "launches_default": kab_launches_default,
+        "max_abs_err": kab_err,
+        # one refit of the main path: 8 problems of 300 points
+        "ms": kab_times["kernel"][0],
+        "plain_ms": kab_times["plain"][0],
+        "bound_ms": kab_bound,
+        "bound_by": kab_by,
+        # torch.linalg.svd + det of the same 8 cross-covariances
+        "library_ms": kab_times["library"][0],
+        "event_ms": kab_times["kernel"][1],
+        "plain_event_ms": kab_times["plain"][1],
+        "library_event_ms": kab_times["library"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

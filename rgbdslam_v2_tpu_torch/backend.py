@@ -12,7 +12,8 @@ precision) plus the TPU-backend gate in ``models/orb.py``. Here:
   source with ``nvcc`` into a plain-C shared library and loads it with
   ``ctypes``. The build is keyed by a hash of the source, lands in the
   git-ignored ``_build/`` directory beside this file, and a failed build
-  raises with the compiler's output.
+  raises with the compiler's output. :func:`build_kernel_libraries` builds
+  several sources at once, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import List
 
 import torch
 
@@ -97,23 +99,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def build_kernel_libraries(names) -> List[Path]:
+    """Compile every csrc/<name>.cu whose hash-keyed library is missing,
+    one nvcc process a source, all started together; raise with the
+    compiler's output if any fails."""
+    outs = [library_path(name) for name in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        jobs.append((name, out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, out, tmp, cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
+
+
 def build_kernel_library(name: str) -> Path:
     """Compile csrc/<name>.cu unless the hash-keyed library exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    return build_kernel_libraries([name])[0]
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:

@@ -3,13 +3,25 @@
 Port of ``rgbdslam_v2_tpu/core/alignment.py``: ``weighted_kabsch`` (SVD),
 ``weighted_kabsch_quat`` (Horn's quaternion by shifted power iteration, the
 RANSAC hypothesis fit) and ``horn_align_trajectories``.
+
+``weighted_kabsch`` takes CPU tensors through its plain version
+``weighted_kabsch_plain`` (``torch.linalg.svd`` + ``det``) and CUDA tensors
+through the hand-written kernel ``csrc/kabsch.cu`` (one launch a call, a
+3x3 SVD in registers): cuSOLVER's SVD and det wait for the card to check
+their status, the kernel does not, so the per-frame step holds no host
+sync and can be captured as a CUDA graph. ``LAUNCHES`` counts launches.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import backend
 from . import se3
+
+LAUNCHES = 0  # kernel launches (incremented only where the kernel launches)
+_fn = None
 
 _Q0 = (0.8, 0.35, 0.3, 0.25)  # power-iteration start (w, x, y, z)
 
@@ -26,8 +38,56 @@ def _centered_cross_cov(src, dst, w):
     return H, mu_s, mu_d
 
 
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = backend.load_kernel_library("kabsch").weighted_kabsch_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def weighted_kabsch_cuda(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel: one launch for every problem of the batch."""
+    global LAUNCHES
+    n = src.shape[-2]
+    if not (src.is_cuda and dst.device == src.device and w.device == src.device):
+        raise ValueError("weighted_kabsch_cuda needs CUDA tensors on one device")
+    if (src.dtype, dst.dtype, w.dtype) != (torch.float32,) * 3:
+        raise ValueError("weighted_kabsch_cuda takes float32 tensors")
+    if src.shape[-1] != 3 or dst.shape != src.shape or w.shape != src.shape[:-1]:
+        raise ValueError(f"shapes src {tuple(src.shape)}, dst {tuple(dst.shape)}, "
+                         f"w {tuple(w.shape)}: expected (..., N, 3) twice and (..., N)")
+    batch = src.shape[:-2]
+    s = src.reshape(-1, n, 3).contiguous()
+    d = dst.reshape(-1, n, 3).contiguous()
+    ww = w.reshape(-1, n).contiguous()
+    out = torch.empty((s.shape[0], 4, 4), dtype=torch.float32, device=src.device)
+    if s.shape[0] == 0:
+        return out.reshape(*batch, 4, 4)
+    status = _kernel_fn()(s.data_ptr(), d.data_ptr(), ww.data_ptr(), out.data_ptr(),
+                          s.shape[0], n, torch.cuda.current_stream(src.device).cuda_stream)
+    backend.check_launch(status, "weighted_kabsch_f32")
+    LAUNCHES += 1
+    return out.reshape(*batch, 4, 4)
+
+
 def weighted_kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Best-fit T with dst ~ T @ src (weights w >= 0). src, dst (..., N, 3)."""
+    """Best-fit T with dst ~ T @ src (weights w >= 0). src, dst (..., N, 3).
+    CPU tensors -> plain version; CUDA -> the kernel."""
+    if src.is_cuda:
+        return weighted_kabsch_cuda(src, dst, w)
+    return weighted_kabsch_plain(src, dst, w)
+
+
+def weighted_kabsch_plain(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version: torch.linalg.svd + det."""
     H, mu_s, mu_d = _centered_cross_cov(src, dst, w)
     U, _, Vt = torch.linalg.svd(H)
     V = Vt.transpose(-1, -2)

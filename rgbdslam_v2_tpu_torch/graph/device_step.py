@@ -1,11 +1,20 @@
-"""The per-frame keep-all step: extract, compare, decide, commit.
+"""The per-frame keep-all step: extract, compare, decide, commit; and the
+N-frame step, replayed on the card as one CUDA graph.
 
 Port of ``rgbdslam_v2_tpu/graph/device_step.py`` (``_compute_body`` and
-``_commit_body``, ``StepSummary``). The JAX package splits compute and
-commit into two programs only to steer XLA's copy insertion; here they are
-one function that writes the node row and its B+1 edge slots in place.
-All per-frame decisions stay on the device; the host reads the packed
-(4B+2,) summary later, at a drain.
+``_commit_body``, ``StepSummary``, ``make_slam_stepN``). The JAX package
+splits compute and commit into two programs only to steer XLA's copy
+insertion; here they are one function that writes the node row and its
+B+1 edge slots in place. All per-frame decisions stay on the device; the
+host reads the packed (4B+2,) summary later, at a drain.
+
+Node ids, the predecessor id and the first edge slot are (1,) long device
+tensors, and every write indexes with them (``index_copy_``), so the
+step's kernels do not depend on the frame: :class:`StepGraph` captures
+``slam_stepN`` once per (n, FAST threshold, wire length) and replays it
+for every later group, with the group's inputs copied into static buffers
+first. The capture needs a step without host syncs: the Kabsch refits run
+in ``csrc/kabsch.cu``, not cuSOLVER.
 
 ``commit_node`` is the in-place write shared with the host-decision path
 (JAX ``manager._commit_node``).
@@ -13,11 +22,14 @@ All per-frame decisions stay on the device; the host reads the packed
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+import time
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from ..core import alignment
+from ..ops import detect
 from ..optim.pose_graph import GraphState
 from .compare import compare_to_candidates
 from .ingest import prepare_and_extract
@@ -47,34 +59,39 @@ class StepSummary(NamedTuple):
         )
 
 
-def commit_node(store: NodeStore, graph: GraphState, new_id: int, kp, depth_small,
+def commit_node(store: NodeStore, graph: GraphState, new_id: torch.Tensor, kp, depth_small,
                 color_small, base_id: torch.Tensor, base_T_new: torch.Tensor,
-                edge_start: int, e_i: torch.Tensor, e_j, e_meas: torch.Tensor,
-                e_info: torch.Tensor, e_active: torch.Tensor) -> None:
-    """Insert node new_id, posed at poses[base_id] @ base_T_new (base_id a
-    (1,) long tensor), and write the edge slots edge_start.. where e_active,
-    in place. e_j is a (n,) tensor or one node id for every slot."""
+                edge_start: torch.Tensor, e_i: torch.Tensor, e_j: torch.Tensor,
+                e_meas: torch.Tensor, e_info: torch.Tensor, e_active: torch.Tensor) -> None:
+    """Insert node new_id, posed at poses[base_id] @ base_T_new, and write
+    the edge slots edge_start.. where e_active, in place. new_id, base_id and
+    edge_start are (1,) long device tensors; e_i, e_j (n,) int32."""
     store.insert(new_id, kp, depth_small, color_small)
-    graph.poses[new_id] = graph.poses.index_select(0, base_id)[0] @ base_T_new
-    graph.node_active[new_id].fill_(True)  # fill_: a Python value set would sync
-    sl = slice(edge_start, edge_start + e_i.shape[0])
-    graph.edge_i[sl] = torch.where(e_active, e_i, graph.edge_i[sl])
-    graph.edge_j[sl] = torch.where(e_active, e_j, graph.edge_j[sl])
-    graph.edge_meas[sl] = torch.where(e_active[:, None, None], e_meas, graph.edge_meas[sl])
-    graph.edge_info[sl] = torch.where(e_active[:, None, None], e_info, graph.edge_info[sl])
-    graph.edge_active[sl] |= e_active
+    pose = graph.poses.index_select(0, base_id)[0] @ base_T_new
+    graph.poses.index_copy_(0, new_id, pose[None])
+    graph.node_active.index_fill_(0, new_id, True)
+    slots = edge_start + torch.arange(e_i.shape[0], device=edge_start.device)
+
+    def write(t, new, mask):
+        t.index_copy_(0, slots, torch.where(mask, new, t.index_select(0, slots)))
+
+    write(graph.edge_i, e_i, e_active)
+    write(graph.edge_j, e_j, e_active)
+    write(graph.edge_meas, e_meas, e_active[:, None, None])
+    write(graph.edge_info, e_info, e_active[:, None, None])
+    graph.edge_active.index_copy_(0, slots, graph.edge_active.index_select(0, slots) | e_active)
 
 
 def slam_step(
     store: NodeStore,
     graph: GraphState,
-    packed: torch.Tensor,  # (L,) u8 yc12 buffer on the device
-    new_id: int,
-    pred_id: int,
+    packed: torch.Tensor,  # (L,) u8 yc12/ydct buffer on the device
+    new_id: torch.Tensor,  # (1,) long
+    pred_id: torch.Tensor,  # (1,) long
     cand_idx: torch.Tensor,  # (B,) long
     cand_dup: torch.Tensor,  # (B,) bool, padding duplicates
     cand_dt: torch.Tensor,  # (B,) float32 |t_new - t_cand|
-    edge_start: int,
+    edge_start: torch.Tensor,  # (1,) long
     generator: torch.Generator,
     *,
     extractor,
@@ -82,6 +99,7 @@ def slam_step(
     cam_small,
     stride: int,
     depth_bits: int,
+    dct,
     min_depth: float,
     max_depth: float,
     max_matches: int,
@@ -103,7 +121,7 @@ def slam_step(
     float32 summary on the device."""
     kp, depth_small, color_small = prepare_and_extract(
         extractor, cam, stride, min_depth, max_depth, use_feature_min_depth,
-        packed, depth_bits)
+        packed, depth_bits, dct)
     res = compare_to_candidates(
         kp, depth_small, store, cand_idx, generator, cam_small,
         cam_fx=cam.fx, cam_fy=cam.fy, max_matches=max_matches, ratio=ratio,
@@ -133,7 +151,7 @@ def slam_step(
     any_acc = accept.any()
     score = torch.where(accept, res.n_inliers, -1)
     best = torch.argmax(score).view(1)
-    pred = cand_idx.new_full((), pred_id)
+    pred = pred_id.reshape(())
     base_id = torch.where(any_acc, cand_idx.index_select(0, best)[0], pred)
     eye4 = torch.eye(4, device=dev)
     base_T_new = torch.where(any_acc, T.index_select(0, best)[0], eye4)
@@ -143,16 +161,165 @@ def slam_step(
     eye6 = torch.eye(6, device=dev)
     vis_info = info_scale[:, None, None] * eye6
     fallback = ~any_acc  # keep_all: a constant-position edge when none accepted
-    e_i = torch.cat([cand_idx, pred[None]]).to(torch.int32)
+    e_i = torch.cat([cand_idx, pred_id]).to(torch.int32)
     e_meas = torch.cat([T, eye4[None]], dim=0)
     fb_info = const_pos_information / torch.clamp(cand_dt[0], min=1e-3)
     e_info = torch.cat([vis_info, (fb_info * eye6)[None]], dim=0)
     e_active = torch.cat([accept, fallback[None]])
 
     commit_node(store, graph, new_id, kp, depth_small, color_small, base_id.view(1),
-                base_T_new, edge_start, e_i, new_id, e_meas, e_info, e_active)
+                base_T_new, edge_start, e_i, new_id.to(torch.int32).expand(B + 1), e_meas,
+                e_info, e_active)
 
     return torch.cat([
         accept.float(), res.n_inliers.float(), res.rmse, res.emm_quality,
         fallback.float()[None], kp.count().float()[None],
     ])
+
+
+class GroupInputs(NamedTuple):
+    """Inputs of an n-frame step, views of one flat u8 device buffer."""
+
+    packed: torch.Tensor  # (n, L) u8 wires
+    new_ids: torch.Tensor  # (n,) long
+    pred_ids: torch.Tensor  # (n,) long
+    edge_starts: torch.Tensor  # (n,) long
+    cand_idx: torch.Tensor  # (n, B) long
+    cand_dt: torch.Tensor  # (n, B) float32
+    cand_dup: torch.Tensor  # (n, B) u8, nonzero for padding duplicates
+
+
+def _layout(n: int, L: int, B: int) -> Tuple[int, int, int, int]:
+    """Byte offsets of the long block, the float block and the dup bytes in
+    the flat input buffer of GroupInputs, and its size."""
+    off_long = -(-n * L // 8) * 8
+    off_f32 = off_long + 8 * (3 * n + n * B)
+    off_dup = off_f32 + 4 * n * B
+    return off_long, off_f32, off_dup, off_dup + n * B
+
+
+def group_views(flat: torch.Tensor, n: int, L: int, B: int) -> GroupInputs:
+    """GroupInputs as views of a flat u8 buffer (host or device)."""
+    off_long, off_f32, off_dup, size = _layout(n, L, B)
+    longs = flat[off_long:off_f32].view(torch.int64)
+    return GroupInputs(
+        packed=flat[: n * L].view(n, L),
+        new_ids=longs[:n], pred_ids=longs[n : 2 * n], edge_starts=longs[2 * n : 3 * n],
+        cand_idx=longs[3 * n :].view(n, B),
+        cand_dt=flat[off_f32:off_dup].view(torch.float32).view(n, B),
+        cand_dup=flat[off_dup:size].view(n, B),
+    )
+
+
+def pack_group(packed: np.ndarray, new_ids, cand_idx, cand_dup, cand_dt, edge_starts,
+               pin: bool) -> torch.Tensor:
+    """One flat u8 host buffer (pinned when `pin`) holding a group's inputs:
+    packed (n, L) u8 wires, and per frame its id (pred = id - 1), B
+    candidates, dup flags, dt and first edge slot."""
+    n, L = packed.shape
+    B = len(cand_idx[0])
+    flat = torch.empty(_layout(n, L, B)[3], dtype=torch.uint8, pin_memory=pin)
+    g = group_views(flat, n, L, B)
+    g.packed.numpy()[:] = packed
+    g.new_ids.numpy()[:] = new_ids
+    g.pred_ids.numpy()[:] = np.asarray(new_ids) - 1
+    g.edge_starts.numpy()[:] = edge_starts
+    g.cand_idx.numpy()[:] = cand_idx
+    g.cand_dt.numpy()[:] = cand_dt
+    g.cand_dup.numpy()[:] = cand_dup
+    return flat
+
+
+def slam_stepN(store: NodeStore, graph: GraphState, g: GroupInputs,
+               generator: torch.Generator, **cfg) -> torch.Tensor:
+    """n consecutive frames in order; frame k's comparison reads frame
+    k-1's freshly committed row (JAX make_slam_stepN). Returns the (n,
+    4B+2) summaries."""
+    sums = []
+    for k in range(g.packed.shape[0]):
+        sl = slice(k, k + 1)
+        sums.append(slam_step(
+            store, graph, g.packed[k], g.new_ids[sl], g.pred_ids[sl], g.cand_idx[k],
+            g.cand_dup[k] != 0, g.cand_dt[k], g.edge_starts[sl], generator, **cfg))
+    return torch.stack(sums)
+
+
+class _Captured:
+    """One captured n-frame step: static inputs, graph, static outputs and
+    the kernel launches one replay makes."""
+
+    def __init__(self, flat: torch.Tensor, inputs: GroupInputs):
+        self.flat = flat
+        self.inputs = inputs
+        self.graph = torch.cuda.CUDAGraph()
+        self.out: torch.Tensor = None
+        self.launches = (0, 0)  # (detect, kabsch) a replay
+
+
+class StepGraph:
+    """slam_stepN on the card as CUDA graphs, one per (n, FAST threshold,
+    wire length).
+
+    The first group of a key runs eagerly, on a side stream between two
+    synchronisations: it warms every lazily built constant and library
+    handle. The second is captured (the RANSAC generator registered with
+    the graph, so a replay draws what the eager steps would) and replayed;
+    every later one copies its inputs into the static buffer (one
+    host->device copy from pinned memory) and replays. A capture that fails
+    raises: there is no eager fallback on the card. A replay adds the
+    detect and Kabsch launches its capture recorded to those kernels'
+    launch counts."""
+
+    def __init__(self, store: NodeStore, graph: GraphState, generator: torch.Generator):
+        self.store, self.graph, self.generator = store, graph, generator
+        self._seen = set()
+        self._graphs: Dict[tuple, _Captured] = {}
+        self.captures = 0
+        self.replays = 0
+        self.eager_groups = 0
+        self.replay_s = 0.0  # host seconds inside replay calls (graph launches)
+
+    def run(self, host_flat: torch.Tensor, n: int, L: int, B: int, cfg: dict) -> torch.Tensor:
+        """Run one group whose inputs are `host_flat` (pack_group, pinned);
+        returns its (n, 4B+2) summaries in a tensor of their own."""
+        dev = self.store.uv.device
+        key = (n, float(cfg["extractor"].fast_threshold), L)
+        cap = self._graphs.get(key)
+        if cap is None and key not in self._seen:
+            self._seen.add(key)
+            self.eager_groups += 1
+            flat = host_flat.to(dev, non_blocking=True)
+            side = torch.cuda.Stream(dev)
+            torch.cuda.synchronize(dev)
+            with torch.cuda.stream(side):
+                out = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
+                                 self.generator, **cfg)
+            torch.cuda.synchronize(dev)
+            return out
+        if cap is None:
+            cap = self._capture(key, host_flat, n, L, B, cfg)
+        cap.flat.copy_(host_flat, non_blocking=True)
+        t0 = time.perf_counter()
+        cap.graph.replay()
+        self.replay_s += time.perf_counter() - t0
+        self.replays += 1
+        detect.LAUNCHES += cap.launches[0]
+        alignment.LAUNCHES += cap.launches[1]
+        return cap.out.clone()
+
+    def _capture(self, key, host_flat, n, L, B, cfg) -> _Captured:
+        dev = self.store.uv.device
+        flat = torch.empty(host_flat.shape, dtype=torch.uint8, device=dev)
+        cap = _Captured(flat, group_views(flat, n, L, B))
+        cap.graph.register_generator_state(self.generator)
+        counts = (detect.LAUNCHES, alignment.LAUNCHES)
+        try:
+            with torch.cuda.graph(cap.graph):
+                cap.out = slam_stepN(self.store, self.graph, cap.inputs, self.generator, **cfg)
+        finally:
+            # capturing records the kernels without launching them
+            cap.launches = (detect.LAUNCHES - counts[0], alignment.LAUNCHES - counts[1])
+            detect.LAUNCHES, alignment.LAUNCHES = counts
+        self._graphs[key] = cap
+        self.captures += 1
+        return cap

@@ -1,23 +1,31 @@
-"""The yc12 ingest wire: host packing and device unpacking.
+"""The yc12 and ydct ingest wires: host packing and device unpacking.
 
-Port of the yc12 parts of ``rgbdslam_v2_tpu/graph/manager.py``:
+Port of the yc12 and ydct parts of ``rgbdslam_v2_tpu/graph/manager.py``:
 
-* host side, numpy: ``compact_frame`` (its numpy yc12 branch, gray_bits 8),
-  ``_d10_lut``/``_pack10``, ``_d12_lut``/``_pack12``, ``_chroma_mult``;
-* device side, torch: ``_unpack_yc12``, ``_decode_color_small`` and
-  ``_finish_yc12`` (depth masking, feature-depth plane, extraction).
+* host side, numpy: ``compact_frame`` (its numpy yc12 branch with gray_bits
+  8, and its ydct branch), ``_d10_lut``/``_pack10``, ``_d12_lut``/
+  ``_pack12``, ``_chroma_mult``;
+* device side, torch: ``_unpack_yc12`` (8-bit and DCT luma),
+  ``_decode_color_small`` and ``_finish_yc12`` (depth masking,
+  feature-depth plane, extraction).
 
-Wire layout: [Y (H*W u8) | sqrt-coded depth at stride s (10 or 12 bits) |
-Cb | Cr at stride cm*s]. The JAX uint32 shifts are int32 ops here.
+Wire layout: [luma | sqrt-coded depth at stride s (10 or 12 bits) | Cb | Cr
+at stride cm*s]. The luma is H*W u8 bytes (yc12) or the fixed-rate block-DCT
+planes of ``ops/dct_wire.py`` (ydct, chosen by passing its ``DctSpec``). The
+JAX package encodes ydct with a native C encoder where it can; the port uses
+the numpy encoder, whose bytes are the JAX package's numpy bytes. The JAX
+uint32 shifts are int32 ops here.
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..models.orb import feature_depth_map
+from ..ops.dct_wire import DctSpec, check_shape, dct_luma_len, decode_luma_dct_dev, encode_luma_dct
 
 DEPTH_SCALE = 5000.0  # TUM PNG quantization: depth_meters = png_u16 / 5000
 
@@ -63,14 +71,19 @@ def _chroma_mult(H: int, W: int, stride: int) -> int:
     return 4 if (H % cs == 0 and W % cs == 0) else 2
 
 
-def compact_frame(rgb, depth, stride: int, depth_bits: int = 12) -> np.ndarray:
-    """Host yc12 encoder (gray_bits=8): rgb (H, W, 3) u8 or (H, W) gray,
-    depth (H, W) u16 counts or float meters -> one packed u8 buffer."""
+def compact_frame(rgb, depth, stride: int, depth_bits: int = 12,
+                  dct: Optional[DctSpec] = None) -> np.ndarray:
+    """Host encoder: rgb (H, W, 3) u8 or (H, W) gray, depth (H, W) u16
+    counts or float meters -> one packed u8 buffer. yc12 with 8-bit luma,
+    or ydct when `dct` names the luma's rate/quality point (H and W
+    divisible by 8, else ValueError)."""
     if depth_bits not in (10, 12):
         raise NotImplementedError(f"tpu_depth_bits={depth_bits} (10 or 12)")
     rgb = np.asarray(rgb)
     depth = np.asarray(depth)
     H, W = depth.shape
+    if dct is not None:
+        check_shape(H, W)
     if rgb.ndim == 3:
         r16 = rgb.astype(np.uint16)
         gray8 = ((r16[..., 0] * 77 + r16[..., 1] * 150 + r16[..., 2] * 29) >> 8).astype(np.uint8)
@@ -95,7 +108,8 @@ def compact_frame(rgb, depth, stride: int, depth_bits: int = 12) -> np.ndarray:
     else:
         cb = np.full((H // cs, W // cs), 128, np.uint8)
         cr = np.full((H // cs, W // cs), 128, np.uint8)
-    return np.concatenate([gray8.reshape(-1), dq, cb.reshape(-1), cr.reshape(-1)])
+    luma = gray8.reshape(-1) if dct is None else encode_luma_dct(gray8, dct)
+    return np.concatenate([luma, dq, cb.reshape(-1), cr.reshape(-1)])
 
 
 def _decode_color_small(packed, off: int, gray8, stride: int, cm: int,
@@ -115,14 +129,20 @@ def _decode_color_small(packed, off: int, gray8, stride: int, cm: int,
     return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0).to(torch.uint8)
 
 
-def unpack_yc12(packed: torch.Tensor, H: int, W: int, stride: int, depth_bits: int):
+def unpack_yc12(packed: torch.Tensor, H: int, W: int, stride: int, depth_bits: int,
+                dct: Optional[DctSpec] = None):
     """Device inverse of compact_frame: packed u8 -> (gray u8 (H, W),
-    depth_small f32 meters (h, w), color u8 (h, w, 3))."""
-    n_gray = H * W
+    depth_small f32 meters (h, w), color u8 (h, w, 3)). `dct` as given to
+    compact_frame."""
     h, w = H // stride, W // stride
     cm = _chroma_mult(H, W, stride)
     hc, wc = H // (cm * stride), W // (cm * stride)
-    gray8 = packed[:n_gray].reshape(H, W)
+    if dct is None:
+        n_gray = H * W
+        gray8 = packed[:n_gray].reshape(H, W)
+    else:
+        n_gray = dct_luma_len(H, W, dct)
+        gray8 = decode_luma_dct_dev(packed[:n_gray], H, W, dct)
     if depth_bits == 10:
         n_d = (h * w // 4) * 5
         b = packed[n_gray : n_gray + n_d].reshape(-1, 5).to(torch.int32)
@@ -157,9 +177,11 @@ def finish_yc12(extractor, cam, stride: int, min_depth: float, max_depth: float,
 
 
 def prepare_and_extract(extractor, cam, stride, min_depth, max_depth,
-                        use_feature_min_depth, packed, depth_bits):
-    """Unpack one yc12 buffer and extract: (Keypoints, depth_small, color_small)."""
-    gray8, depth_m, color_small = unpack_yc12(packed, cam.height, cam.width, stride, depth_bits)
+                        use_feature_min_depth, packed, depth_bits, dct=None):
+    """Unpack one yc12/ydct buffer and extract: (Keypoints, depth_small,
+    color_small)."""
+    gray8, depth_m, color_small = unpack_yc12(packed, cam.height, cam.width, stride,
+                                              depth_bits, dct)
     kp, depth_small = finish_yc12(extractor, cam, stride, min_depth, max_depth,
                                   use_feature_min_depth, gray8, depth_m)
     return kp, depth_small, color_small

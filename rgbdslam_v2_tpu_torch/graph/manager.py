@@ -2,20 +2,27 @@
 
 Port of ``rgbdslam_v2_tpu/graph/manager.py``: ``__init__``, ``add_frame``
 (first frame, the keep-all fast path and the host-decision path without
-odometry and ICP), ``_commit``, ``_add_frame_device``, ``_drain_pending``
-(synchronous, no staging), ``_drain_batch``, ``_adapt_detector``,
-``_apply_fixation``, ``_inaffected_kernel``, ``_optimize_inaffected``,
-``optimize``, ``prune_edges_above``, ``toggle_mapping``,
-``delete_last_frame``, ``clear_feature_information``, ``reset``,
-``poses``, ``trajectory`` and ``statistics``. Host bookkeeping and the
-per-frame decisions live in ``graph/host_graph.py``.
+odometry and ICP), ``can_group`` and ``add_frame_group`` (N frames a step),
+``_commit``, ``_add_frame_device`` (``_add_frames_device``, shared with
+the groups), ``_drain_pending`` (blocking or pipelined),
+``_consume_ready_staged``, ``_drain_batch``, ``_starvation_alert``,
+``_adapt_detector``, ``_apply_fixation``,
+``_inaffected_kernel``, ``_optimize_inaffected``, ``optimize``,
+``prune_edges_above``, ``toggle_mapping``, ``delete_last_frame``,
+``clear_feature_information``, ``reset``, ``poses``, ``trajectory`` and
+``statistics``. Host bookkeeping and the per-frame decisions live in
+``graph/host_graph.py``.
 
 Two per-frame paths, chosen as in the JAX package:
 
 * keep-all fast path (``keep_all_nodes`` with no motion gate, mapping on):
-  every frame runs ``device_step.slam_step`` on the device; its (4B+2,)
-  summary is copied to the host asynchronously and read at the next drain
-  (every ``tpu_drain_interval`` frames, leaving the newest 2 in flight).
+  every frame runs ``device_step.slam_step`` on the device, one frame or
+  ``tpu_frames_per_step`` frames a call (on the card a group is one CUDA
+  graph replay, ``device_step.StepGraph``). Its (4B+2,) summary reaches the
+  host at a drain (every ``tpu_drain_interval`` frames, leaving the newest
+  2 in flight): copied to the host as soon as the step is queued, or, with
+  ``tpu_drain_pipelined``, stacked at the drain, copied asynchronously
+  into pinned memory and read once its event has passed.
 * host-decision path (the default configuration, TRO 2014): extract,
   select candidates on the host, compare on the device, pull the result
   and the keypoint count in ONE device->host copy, decide on the host
@@ -38,8 +45,9 @@ from ..core.camera import Intrinsics
 from ..models.orb import OrbExtractor
 from ..optim.pose_graph import (GraphState, edge_chi2, make_graph_state, optimize,
                                  resolve_solver)
+from ..ops import dct_wire
 from .compare import CompareResult, CompareSummary, compare_to_candidates
-from .device_step import StepSummary, commit_node, slam_step
+from .device_step import StepGraph, StepSummary, commit_node, group_views, pack_group, slam_stepN
 from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_edges,
                          const_position_edge, decide_matches, inaffected_subgraph,
                          is_redundant)
@@ -57,21 +65,22 @@ def fast_path(p: ParameterServer) -> bool:
             and p["min_rotation_degree"] <= 0)
 
 
+FRAMES_PER_STEP = (1, 2, 4, 8)
+
+
 def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
     """Refuse configuration that selects a path this port does not have.
-    The fast path's dispatch options (N frames a step, pipelined drains,
-    encode-ahead) are refused only where the fast path runs: off it the
-    JAX package ignores them too."""
+    The ydct wire needs a frame divisible by 8: where the JAX package falls
+    back to yc12, the port refuses."""
     s = p["cloud_creation_skip_step"]
-    fast = fast_path(p)
+    fmt = p["tpu_ingest_format"]
     refused = {
-        "tpu_ingest_format": p["tpu_ingest_format"] != "yc12",
-        "tpu_gray_bits": p["tpu_gray_bits"] != 8,
+        "tpu_ingest_format": fmt not in ("yc12", "ydct") or (
+            fmt == "ydct" and (cam.height % 8 != 0 or cam.width % 8 != 0)),
+        "tpu_gray_bits": fmt == "yc12" and p["tpu_gray_bits"] != 8,
         "tpu_depth_bits": p["tpu_depth_bits"] not in (10, 12),
-        "tpu_frames_per_step": fast and p["tpu_frames_per_step"] > 1,
+        "tpu_frames_per_step": p["tpu_frames_per_step"] not in FRAMES_PER_STEP,
         "tpu_wire_delta": p["tpu_wire_delta"],
-        "tpu_drain_pipelined": fast and p["tpu_drain_pipelined"],
-        "tpu_encode_ahead": fast and p["tpu_encode_ahead"],
         "tpu_edge_info": p["tpu_edge_info"] != "scalar",
         "tpu_emm_exact": p["tpu_emm_exact"],
         "tpu_approx_select": p["tpu_approx_select"],
@@ -96,7 +105,7 @@ def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
 
 def _inaffected_kernel(graph: GraphState, gi, ge, li, lj, nfix, nact, eact, free_mask,
                        iterations: int, huber_delta: float, pcg_iters: int,
-                       solver: str) -> torch.Tensor:
+                       solver: str, read_convergence: bool = True) -> torch.Tensor:
     """Gather the affected subgraph, optimize it, scatter the free poses
     back in place (pose_relative_to=inaffected, graph_manager.cpp:889-992).
     Duplicate ids in gi (the padding) all write the same unchanged pose."""
@@ -104,7 +113,7 @@ def _inaffected_kernel(graph: GraphState, gi, ge, li, lj, nfix, nact, eact, free
         poses=graph.poses[gi], node_active=nact, node_fixed=nfix, edge_i=li, edge_j=lj,
         edge_meas=graph.edge_meas[ge], edge_info=graph.edge_info[ge], edge_active=eact)
     chi2, _ = optimize(sub, iterations=iterations, huber_delta=huber_delta,
-                       pcg_iters=pcg_iters, solver=solver)
+                       pcg_iters=pcg_iters, solver=solver, read_convergence=read_convergence)
     graph.poses[gi] = torch.where(free_mask[:, None, None], sub.poses, graph.poses[gi])
     return chi2
 
@@ -123,6 +132,11 @@ class GraphManager:
         self.cand_batch = p["tpu_candidate_batch"]
         self.emm_stride = s = p["cloud_creation_skip_step"]
         self.depth_bits = p["tpu_depth_bits"]
+        self.ingest_fmt = p["tpu_ingest_format"]
+        # the ydct luma's rate/quality point, carried to the encoder, the
+        # decoder and the starvation alert (ValueError when unknown)
+        self.dct = (dct_wire.spec(p["tpu_dct_quality"]) if self.ingest_fmt == "ydct"
+                    else None)
         self.cam_small = Intrinsics(fx=cam.fx / s, fy=cam.fy / s, cx=cam.cx / s,
                                     cy=cam.cy / s, width=cam.width // s,
                                     height=cam.height // s)
@@ -157,7 +171,14 @@ class GraphManager:
         # first-node replacement (graph_manager.cpp:762-769)
         self._kp_count0 = -1
         self._first_pose = np.eye(4, dtype=np.float32)
-        self._pending: list = []  # (new_id, padded, edge_start, host summary)
+        # (new_id, padded, edge_start, summary): a device tensor row while
+        # the copy waits for a pipelined drain, else (host row, event)
+        self._pending: list = []
+        self._staged: list = []  # [(pend, host stack, event)] copies in flight
+        self._contrast_ema: Optional[float] = None  # host luma contrast (starvation alert)
+        self._starved_mode = False  # contrast collapsed: drains go synchronous
+        self.step_graph = (StepGraph(self.store, self.graph, self.generator)
+                           if self.device.type == "cuda" else None)
 
     # ---- host state, read through the bookkeeping object ----------------
     @property
@@ -192,7 +213,7 @@ class GraphManager:
         p = self.params
         return dict(
             extractor=self.extractor, cam=self.cam, cam_small=self.cam_small,
-            stride=self.emm_stride, depth_bits=self.depth_bits,
+            stride=self.emm_stride, depth_bits=self.depth_bits, dct=self.dct,
             min_depth=p["minimum_depth"], max_depth=p["maximum_depth"],
             **self._compare_kwargs(),
             observability_threshold=p["observability_threshold"],
@@ -217,33 +238,37 @@ class GraphManager:
         p = self.params
         return prepare_and_extract(
             self.extractor, self.cam, self.emm_stride, p["minimum_depth"],
-            p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits)
+            p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits, self.dct)
+
+    def encode(self, rgb, depth) -> np.ndarray:
+        """The host wire of one frame (yc12 or ydct, as configured)."""
+        return compact_frame(rgb, depth, self.emm_stride, self.depth_bits, self.dct)
 
     def add_frame(self, rgb, depth, timestamp: float,
                   ground_truth_pose: Optional[np.ndarray] = None, compact=None) -> bool:
-        """Process one frame (rgb/depth, or a pre-packed yc12 buffer);
+        """Process one frame (rgb/depth, or a pre-packed wire from encode);
         returns True when the node entered the graph (in localization mode:
         when the frame was localized)."""
         if compact is None:
-            compact = compact_frame(rgb, depth, self.emm_stride, self.depth_bits)
+            compact = self.encode(rgb, depth)
         new_id = self.n_nodes
         if new_id >= self.n_cap:
             raise RuntimeError("node capacity exceeded")
-        packed = self._to_device(compact)
         if new_id == 0:
-            self._add_first_frame(packed, timestamp, ground_truth_pose)
+            self._add_first_frame(self._to_device(compact), timestamp, ground_truth_pose)
             return True
         if self.mapping_enabled and fast_path(self.params):
-            self._add_frame_device(packed, timestamp, new_id, new_id - 1)
+            self._add_frames_device([compact], [timestamp], [new_id])
             return True
-        return self._add_frame_host(packed, timestamp, new_id)
+        return self._add_frame_host(self._to_device(compact), timestamp, new_id)
 
     def _add_first_frame(self, packed, timestamp, ground_truth_pose):
         """firstNode (graph_manager.cpp:360-402): fixed at GT or identity."""
         kp, depth_small, color_small = self._extract(packed)
         pose = (np.asarray(ground_truth_pose, np.float32) if ground_truth_pose is not None
                 else np.eye(4, dtype=np.float32))
-        self.store.insert(0, kp, depth_small, color_small)
+        self.store.insert(torch.zeros(1, dtype=torch.long, device=self.device), kp,
+                          depth_small, color_small)
         self.graph.poses[0] = self._to_device(pose)
         self.graph.node_active[0].fill_(True)
         self.graph.node_fixed[0].fill_(True)
@@ -341,52 +366,106 @@ class GraphManager:
         if self.n_edges + len(edges) > self.e_cap:
             raise RuntimeError("edge capacity exceeded")
         n = min(B_e, self.e_cap - self.n_edges)
-        # [base_T_new 16 | base_id | n rows of (i, j, active, meas 16, info 36)]
-        buf = np.zeros(17 + 55 * n, np.float32)
+        # [base_T_new 16 | base_id, new_id, first edge slot | n rows of
+        # (i, j, active, meas 16, info 36)]; ids < 2^24 are exact in float32
+        buf = np.zeros(19 + 55 * n, np.float32)
         buf[:16] = np.asarray(base_T_new, np.float32).reshape(-1)
-        buf[16] = base_id
-        rows = buf[17:].reshape(n, 55)
+        buf[16:19] = base_id, new_id, self.n_edges
+        rows = buf[19:].reshape(n, 55)
         rows[:, 3:19] = np.eye(4, dtype=np.float32).reshape(-1)
         for k, (i, j, meas, info, _t) in enumerate(edges):
             rows[k, :3] = (i, j, 1.0)
             rows[k, 3:19] = np.asarray(meas, np.float32).reshape(-1)
             rows[k, 19:] = np.asarray(info, np.float32).reshape(-1)
         dev = self._to_device(buf)
-        e = dev[17:].view(n, 55)
-        commit_node(self.store, self.graph, new_id, kp, depth_small, color_small,
-                    dev[16:17].long(), dev[:16].view(4, 4), self.n_edges,
+        ids = dev[16:19].long()
+        e = dev[19:].view(n, 55)
+        commit_node(self.store, self.graph, ids[1:2], kp, depth_small, color_small,
+                    ids[0:1], dev[:16].view(4, 4), ids[2:3],
                     e[:, 0].to(torch.int32), e[:, 1].to(torch.int32),
                     e[:, 3:19].reshape(n, 4, 4), e[:, 19:].reshape(n, 6, 6), e[:, 2] > 0.5)
         for (i, j, _m, _info, etype) in edges:
             self.host.add_edge(i, j, etype)
 
     # ---- keep-all fast path ----------------------------------------------
-    def _add_frame_device(self, packed, timestamp, new_id, pred_id) -> None:
+    def can_group(self, n: int = 2) -> bool:
+        """True when the next n frames may go through the n-frame step (the
+        single fast path's preconditions, an existing node to anchor poses,
+        and room for n nodes and their edge slots)."""
+        p = self.params
+        return (self.n_nodes > 0 and self.mapping_enabled and fast_path(p)
+                and not p["use_robot_odom"] and not p["use_robot_odom_only"]
+                and self.n_nodes + n <= self.n_cap
+                and self.n_edges + n * (self.cand_batch + 1) <= self.e_cap)
+
+    @torch.inference_mode()
+    def add_frame_group(self, compacts, tss) -> None:
+        """N consecutive frames in ONE step call (tpu_frames_per_step=N;
+        on the card one CUDA graph replay). Frame k selects its candidates
+        against host state that already holds frames < k (their timestamps;
+        adjacency stays one drain stale, as always). The caller checks
+        can_group(len(compacts)) first."""
+        n = len(compacts)
+        self._add_frames_device(list(compacts), list(tss),
+                                [self.n_nodes + k for k in range(n)])
+
+    def _add_frames_device(self, compacts, tss, ids) -> None:
         p = self.params
         B = self.cand_batch
-        padded, dup, dts = self.host.frame_slots(new_id, timestamp, B)
-        if self.n_edges + B + 1 > self.e_cap:
+        n = len(ids)
+        h = self.host
+        if self.n_edges + n * (B + 1) > self.e_cap:
             raise RuntimeError("edge capacity exceeded")
-        edge_start = self.host.reserve_edges(B)
-        summary = slam_step(
-            self.store, self.graph, packed, new_id, pred_id,
-            self._to_device(np.asarray(padded, np.int64)),
-            self._to_device(np.asarray(dup, bool)),
-            self._to_device(np.asarray(dts, np.float32)),
-            edge_start, self.generator, **self._step_cfg())
-        self._pending.append((new_id, padded, edge_start, self._start_copy(summary)))
-        self.host.n_nodes += 1
-        self.host.timestamps.append(timestamp)
+        slots, added = [], 0
+        try:  # append frames < k for frame k's selection, roll back after
+            for k in range(n):
+                slots.append(h.frame_slots(ids[k], tss[k], B))
+                if k < n - 1:
+                    h.timestamps.append(tss[k])
+                    h.n_nodes += 1
+                    added += 1
+        finally:
+            del h.timestamps[len(h.timestamps) - added:]
+            h.n_nodes -= added
+        e_starts = [h.reserve_edges(B) for _ in range(n)]
+        wires = np.stack(compacts)
+        L = wires.shape[1]
+        cuda = self.device.type == "cuda"
+        host_flat = pack_group(wires, ids, [s[0] for s in slots], [s[1] for s in slots],
+                               [s[2] for s in slots], e_starts, pin=cuda)
+        if cuda and n > 1:
+            sums = self.step_graph.run(host_flat, n, L, B, self._step_cfg())
+        else:
+            flat = host_flat.to(self.device, non_blocking=True)
+            sums = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
+                              self.generator, **self._step_cfg())
+        if p["tpu_drain_pipelined"]:
+            rows = list(sums)  # copied at the drain, stacked
+        else:
+            host, event = self._start_copy(sums)
+            rows = [(host[k], event) for k in range(n)]
+        for k in range(n):
+            self._pending.append((ids[k], slots[k][0], e_starts[k], rows[k]))
+            h.n_nodes += 1
+            h.timestamps.append(tss[k])
+        # evaluate every alert (the tracker is stateful) before combining
+        if any([self._starvation_alert(c) for c in compacts]):
+            # contrast collapsed: flush everything, this group included, so
+            # the adaptive ladder reacts on the next frame instead of a
+            # drain interval later
+            self._drain_pending()
+        self._consume_ready_staged()
         if len(self._pending) >= p["tpu_drain_interval"]:
             # the newest 2 steps may still be running: leave them pending
             self._drain_pending(keep_newest=2)
-        self.nodes_since_optimize += 1
+        self.nodes_since_optimize += n
         if self.nodes_since_optimize >= p["optimizer_skip_step"]:
             self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
                           pcg_iters=24)
 
     def _start_copy(self, summary: torch.Tensor):
-        """Begin the summary's device->host copy; read at drain time."""
+        """Begin a device->host copy into pinned memory; (host, event), the
+        event None where nothing is in flight (CPU)."""
         if not summary.is_cuda:
             return summary, None
         host = torch.empty(summary.shape, dtype=summary.dtype, pin_memory=True)
@@ -395,18 +474,107 @@ class GraphManager:
         event.record()
         return host, event
 
-    def _drain_pending(self, keep_newest: int = 0) -> None:
-        """Read pending step summaries into the host bookkeeping."""
-        if len(self._pending) <= keep_newest:
-            return
-        if keep_newest:
-            pend, self._pending = self._pending[:-keep_newest], self._pending[-keep_newest:]
+    @staticmethod
+    def _landed(event) -> bool:
+        return event is None or event.query()
+
+    def _starvation_alert(self, packed) -> bool:
+        """Host early warning of an abrupt scene-contrast collapse (lights
+        off, auto-exposure failure), from the wire's luma bytes: a >2.5x
+        step of their spread against its running average. The fast path
+        learns keypoint counts only at drains, so an alert makes the caller
+        drain at once and the adaptive ladder see the starved count on the
+        next frame. A collapse enters starved mode (drains synchronous until
+        contrast recovers), a recovery clears it; the average re-bases on an
+        alert, so a long dark stretch alerts once. ydct reads the DC plane's
+        bytes (block means), yc12 the luma bytes."""
+        if not isinstance(packed, np.ndarray):
+            return False
+        H, W = self.cam.height, self.cam.width
+        n = H * W if self.dct is None else dct_wire.dc_len(H, W, self.dct)
+        c = float(np.asarray(packed[:n:127], np.float32).std()) + 1e-3
+        ema = self._contrast_ema
+        if ema is None:
+            self._contrast_ema = c
+            return False
+        alert = abs(float(np.log(c / ema))) > 0.916  # log(2.5)
+        if alert:
+            self._starved_mode = c < ema
+            self._contrast_ema = c
         else:
-            pend, self._pending = self._pending, []
-        for new_id, padded, edge_start, (host, event) in pend:
+            self._contrast_ema = 0.9 * ema + 0.1 * c
+        return alert
+
+    def _stage(self, pend):
+        """Stack pending summaries on the device, start ONE asynchronous
+        copy into pinned memory and mark it with an event."""
+        host, event = self._start_copy(torch.stack([e[3] for e in pend]))
+        return pend, host, event
+
+    def _drain_pending(self, keep_newest: int = 0) -> None:
+        """Read pending step summaries into the host bookkeeping.
+
+        keep_newest > 0 leaves the newest entries pending (their steps may
+        still run). With tpu_drain_pipelined the drained entries are staged
+        (_stage) and read at a later drain or by _consume_ready_staged once
+        their copy has landed; at most 2 staged batches stay in flight, and
+        a blocking drain (keep_newest=0) reads them all. While the adaptive
+        ladder is engaged (threshold below its base), or in starved mode,
+        drains are synchronous: the ladder needs every drain's counts."""
+        batches = []  # (pend, host rows or None, event)
+        if len(self._pending) > keep_newest:
+            if keep_newest:
+                pend, self._pending = self._pending[:-keep_newest], self._pending[-keep_newest:]
+            else:
+                pend, self._pending = self._pending, []
+            uncopied = all(isinstance(e[3], torch.Tensor) for e in pend)
+            if self.params["tpu_drain_pipelined"] and uncopied and not self._starved_mode:
+                self._staged.append(self._stage(pend))
+                while self._staged and (not keep_newest or len(self._staged) > 2
+                                        or self._landed(self._staged[0][2])):
+                    batches.append(self._staged.pop(0))
+            else:
+                # drains land in frame order: whatever is staged predates pend
+                batches += self._staged
+                self._staged = []
+                batches.append((pend, None, None))
+        elif keep_newest == 0:
+            batches += self._staged
+            self._staged = []
+        for batch in batches:
+            self._drain_batch(*batch)
+        while self._staged and self.extractor.fast_threshold < self._base_threshold:
+            self._drain_batch(*self._staged.pop(0))
+
+    def _consume_ready_staged(self) -> None:
+        """Read staged batches whose copy has landed (event.query(): no
+        wait), so the ladder hears of starvation a frame or two after the
+        drain rather than a drain interval later."""
+        while self._staged and self._landed(self._staged[0][2]):
+            self._drain_batch(*self._staged.pop(0))
+
+    def _drain_batch(self, pend, host, event) -> None:
+        """Apply one batch of summaries to the host bookkeeping, in frame
+        order. host/event: a staged copy, or None for entries that carry
+        their own (a device row is read with one blocking copy)."""
+        if host is None:
+            on_device = [e[3] for e in pend if isinstance(e[3], torch.Tensor)]
+            pulled = iter(torch.stack(on_device).cpu() if on_device else ())
+            rows = []
+            for e in pend:
+                if isinstance(e[3], torch.Tensor):
+                    rows.append(next(pulled))
+                else:
+                    row, ev = e[3]
+                    if ev is not None:
+                        ev.synchronize()
+                    rows.append(row)
+        else:
             if event is not None:
                 event.synchronize()
-            s = StepSummary.unpack(host.numpy(), len(padded))
+            rows = host
+        for (new_id, padded, edge_start, _), row in zip(pend, rows):
+            s = StepSummary.unpack(row.numpy(), len(padded))
             self.host.apply_summary(new_id, padded, edge_start, s)
             self._adapt_detector(s.n_valid_kp)
 
@@ -445,7 +613,8 @@ class GraphManager:
         self.graph.node_fixed.copy_(self._to_device(self.host.fixation_mask(
             self.n_cap, self._nodes_opt_watermark, self.mapping_enabled)))
 
-    def _optimize_inaffected(self, iterations: int, blocking: bool, pcg_iters: int) -> float:
+    def _optimize_inaffected(self, iterations: int, blocking: bool, pcg_iters: int,
+                             read: bool = True) -> float:
         """Subgraph-only optimization (pose_relative_to=inaffected): the
         nodes added since the last optimize plus their fixed border,
         gathered, optimized and scattered back (graph_manager.cpp:889-892,
@@ -466,7 +635,7 @@ class GraphManager:
             self.graph, nodes[0], edges[0], edges[1].to(torch.int32),
             edges[2].to(torch.int32), nodes[1].bool(), nodes[2].bool(), edges[3].bool(),
             nodes[3].bool(), iterations=iterations, huber_delta=self.params["huber_delta"],
-            pcg_iters=pcg_iters, solver=self._solver(ncap))
+            pcg_iters=pcg_iters, solver=self._solver(ncap), read_convergence=read)
         return float(chi2) if blocking else float("nan")
 
     @torch.inference_mode()
@@ -474,22 +643,29 @@ class GraphManager:
                  pcg_iters: Optional[int] = None) -> float:
         """LM pose-graph optimization over the committed nodes. The online
         call (blocking=False) drains all but the newest 2 summaries first,
-        like the JAX package; it still waits for its own result."""
+        like the JAX package. The JAX loop stops on the device when it
+        converges; here a stop needs the host to read the flag. The
+        host-decision path waits for the card every frame anyway, so its
+        online call reads the flag after each LM iteration and stops early;
+        on the keep-all fast path, whose frames never wait, the online call
+        runs all its iterations with those after convergence masked (the
+        same poses) and reads nothing."""
         self._drain_pending(keep_newest=0 if blocking else 2)
         p = self.params
+        read = blocking or not (self.mapping_enabled and fast_path(p))
         try:
             if (p["pose_relative_to"] == "inaffected" and self.mapping_enabled
                     and 1 < self._nodes_opt_watermark < self.n_nodes):
                 return self._optimize_inaffected(
                     iterations or p["optimizer_iterations"], blocking,
-                    pcg_iters if pcg_iters is not None else 24)
+                    pcg_iters if pcg_iters is not None else 24, read)
             solver = self._solver(self.n_cap)
             self._apply_fixation()
             chi2, n_it = optimize(
                 self.graph, iterations=iterations or p["optimizer_iterations"],
                 huber_delta=p["huber_delta"],
                 pcg_iters=pcg_iters if pcg_iters is not None else 64, solver=solver,
-                n_nodes=self.n_nodes, n_edges=self.n_edges)
+                n_nodes=self.n_nodes, n_edges=self.n_edges, read_convergence=read)
             if blocking:
                 # the JAX package reports iterations of blocking calls only
                 self.last_optimize_iters = int(n_it)
@@ -497,12 +673,13 @@ class GraphManager:
             return float("nan")
         finally:
             self.nodes_since_optimize = 0
-            # an online optimize leaves the newest 2 summaries pending: their
-            # edges were not optimized, so the watermark stops at the oldest
-            # of them (else those nodes would stay fixed in every later
-            # inaffected optimize)
-            self._nodes_opt_watermark = (min(nid for nid, *_ in self._pending)
-                                         if self._pending else self.n_nodes)
+            # an online optimize leaves the newest 2 summaries pending, and a
+            # pipelined drain may leave staged ones unread: their edges were
+            # not optimized, so the watermark stops at the oldest of them
+            # (else those nodes would stay fixed in every later inaffected
+            # optimize; the JAX package counts the pending ones only)
+            unread = [e[0] for e in self._pending] + [e[0] for b in self._staged for e in b[0]]
+            self._nodes_opt_watermark = min(unread) if unread else self.n_nodes
 
     def _add_const_position_edge(self, i: int, j: int) -> None:
         if self.n_edges >= self.e_cap:

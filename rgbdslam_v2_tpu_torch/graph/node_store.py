@@ -52,16 +52,17 @@ class NodeStore:
             color=torch.zeros((n_cap, color_len), dtype=torch.uint8, **kw),
         )
 
-    def insert(self, idx: int, kp: Keypoints, depth_small: torch.Tensor,
+    def insert(self, idx: torch.Tensor, kp: Keypoints, depth_small: torch.Tensor,
                color_small: torch.Tensor) -> None:
-        """Write node idx in place."""
-        self.uv[idx] = kp.uv
-        self.xyz[idx] = kp.xyz
-        self.desc[idx] = kp.desc
-        self.kp_valid[idx] = kp.valid
-        self.depth[idx] = depth_small.reshape(-1)
-        self.emm_lohi[idx] = emm_pool_maps(depth_small).reshape(-1)
-        self.color[idx] = color_small.reshape(-1)[: self.color.shape[1]]
+        """Write node idx ((1,) long tensor on the store's device) in place;
+        the index stays on the device, so a captured step can replay it."""
+        self.uv.index_copy_(0, idx, kp.uv[None])
+        self.xyz.index_copy_(0, idx, kp.xyz[None])
+        self.desc.index_copy_(0, idx, kp.desc[None])
+        self.kp_valid.index_copy_(0, idx, kp.valid[None])
+        self.depth.index_copy_(0, idx, depth_small.reshape(1, -1))
+        self.emm_lohi.index_copy_(0, idx, emm_pool_maps(depth_small).reshape(1, -1))
+        self.color.index_copy_(0, idx, color_small.reshape(1, -1)[:, : self.color.shape[1]])
 
     def clear_features(self, idx) -> None:
         """Free feature slots in place (clearFeatureInformation): idx is a

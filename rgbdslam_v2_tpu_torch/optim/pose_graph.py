@@ -233,25 +233,38 @@ def resolve_solver(solver: str, n_cap: int) -> str:
 
 def optimize(g: GraphState, iterations: int = 20, huber_delta: float = 1.0,
              pcg_iters: int = 64, chi2_rel_tol: float = 1e-4, solver: str = "auto",
-             n_nodes: Optional[int] = None, n_edges: Optional[int] = None):
+             n_nodes: Optional[int] = None, n_edges: Optional[int] = None,
+             read_convergence: bool = True):
     """LM until an accepted step improves chi2 by less than chi2_rel_tol,
     at most `iterations` times. Updates g.poses in place; returns
-    (final_chi2 tensor, iterations used)."""
+    (final_chi2 tensor, iterations used). With read_convergence=False the
+    host never reads the card: all `iterations` run, and those after
+    convergence leave poses, lambda and chi2 as they were (the same result;
+    the iteration count returned is then `iterations`)."""
     solver = resolve_solver(solver, g.poses.shape[0])
     n_nodes = g.poses.shape[0] if n_nodes is None else n_nodes
     n_edges = g.edge_i.shape[0] if n_edges is None else n_edges
     sub = g.prefix(n_nodes, n_edges)
-    lam = torch.tensor(1e-4, device=g.poses.device)
+    lam = torch.full((), 1e-4, device=g.poses.device)
     chi2 = edge_chi2(sub).sum()
+    done = torch.zeros((), dtype=torch.bool, device=g.poses.device)
     it = 0
     while it < iterations:
-        poses, lam, chi2_before, chi2 = lm_iteration(sub, lam, huber_delta, pcg_iters,
-                                                     solver)
-        sub.poses.copy_(poses)
+        poses, lam_new, chi2_before, chi2_new = lm_iteration(sub, lam, huber_delta,
+                                                             pcg_iters, solver)
         it += 1
-        rel = (chi2_before - chi2) / torch.clamp(chi2_before, min=1e-12)
+        rel = (chi2_before - chi2_new) / torch.clamp(chi2_before, min=1e-12)
         # converged only on an ACCEPTED step with a small relative decrease
         # (a rejected step retries with a larger lambda)
-        if bool((chi2 < chi2_before) & (rel < chi2_rel_tol)):
-            break
+        converged = (chi2_new < chi2_before) & (rel < chi2_rel_tol)
+        if read_convergence:
+            sub.poses.copy_(poses)
+            lam, chi2 = lam_new, chi2_new
+            if bool(converged):
+                break
+        else:
+            sub.poses.copy_(torch.where(done, sub.poses, poses))
+            lam = torch.where(done, lam, lam_new)
+            chi2 = torch.where(done, chi2, chi2_new)
+            done = done | converged
     return chi2, it

@@ -1,16 +1,20 @@
 """SLAM pipeline: frames -> graph -> trajectories, and the 5-level protocol.
 
 Port of ``rgbdslam_v2_tpu/pipeline/slam.py``: ``SlamPipeline.process_frame``
-(without the paused and live-view state), ``run_arrays`` (single-frame
-dispatch) and ``evaluation_protocol``, with ``EvaluationReport``. The
-per-frame work runs under ``torch.inference_mode``. With no ``device`` the
-pipeline runs on the CUDA card, or raises where there is none.
+(without the paused and live-view state), ``run_arrays`` (frames grouped
+``tpu_frames_per_step`` a step on the keep-all fast path, host encodes
+run ahead on a worker thread with ``tpu_encode_ahead``; without the
+octomap and live-view branches) and ``evaluation_protocol``, with
+``EvaluationReport``. The per-frame work runs under
+``torch.inference_mode``. With no ``device`` the pipeline runs on the CUDA
+card, or raises where there is none.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -20,7 +24,6 @@ from ..config import ParameterServer, default_params
 from ..core.camera import Intrinsics
 from ..eval.ate import evaluate_ate
 from ..graph.manager import GraphManager
-from ..graph.ingest import compact_frame
 from ..io.tum import write_trajectory
 
 
@@ -63,17 +66,61 @@ class SlamPipeline:
         return took
 
     def run_arrays(self, rgbs, depths, stamps, gt_poses=None) -> None:
-        """Feed pre-loaded host arrays frame by frame (skip_first_n_frames,
-        data_skip_step honoured); the first processed frame is anchored at
-        its ground-truth pose when given."""
+        """Feed pre-loaded host arrays (skip_first_n_frames, data_skip_step
+        honoured); the first processed frame is anchored at its ground-truth
+        pose when given. Where the manager can group them, frames go
+        tpu_frames_per_step at a time through one step call. With
+        tpu_encode_ahead one worker thread keeps the next two host encodes
+        in flight (the same wires, so the same result)."""
         p = self.params
         idxs = list(range(p["skip_first_n_frames"], len(rgbs), max(1, p["data_skip_step"])))
-        stride, db = self.manager.emm_stride, self.manager.depth_bits
-        for i in idxs:
-            cpt = compact_frame(rgbs[i], depths[i], stride, db)
-            gt = (gt_poses[idxs[0]]
-                  if (gt_poses is not None and self.manager.n_nodes == 0) else None)
-            self.process_frame(None, None, float(stamps[i]), gt, compact=cpt)
+        if not idxs:
+            return
+        mgr = self.manager
+        ngroup = int(p["tpu_frames_per_step"])
+
+        def enc_at(pos):
+            return mgr.encode(rgbs[idxs[pos]], depths[idxs[pos]])
+
+        ex = (ThreadPoolExecutor(1, thread_name_prefix="encode-ahead")
+              if p["tpu_encode_ahead"] and len(idxs) > 1 else None)
+        futs = {}
+
+        def get_enc(pos):
+            if ex is None:
+                return enc_at(pos)
+            f = futs.pop(pos, None)
+            out = f.result() if f is not None else enc_at(pos)
+            for q in (pos + 1, pos + 2):
+                if q < len(idxs) and q not in futs:
+                    futs[q] = ex.submit(enc_at, q)
+            return out
+
+        try:
+            k = 0
+            while k < len(idxs):
+                cpt = get_enc(k)
+                g = min(ngroup, len(idxs) - k)
+                if g >= 2 and mgr.can_group(g):
+                    cpts = [cpt] + [get_enc(k + m) for m in range(1, g)]
+                    self._process_group(cpts, [float(stamps[i]) for i in idxs[k : k + g]])
+                    k += g
+                    continue
+                i = idxs[k]
+                gt = gt_poses[idxs[0]] if (gt_poses is not None and mgr.n_nodes == 0) else None
+                self.process_frame(None, None, float(stamps[i]), gt, compact=cpt)
+                k += 1
+        finally:
+            if ex is not None:
+                ex.shutdown(wait=True, cancel_futures=True)
+
+    @torch.inference_mode()
+    def _process_group(self, compacts, stamps) -> None:
+        """Frames that all enter the graph (keep-all): one step call."""
+        t0 = time.perf_counter()
+        self.manager.add_frame_group(compacts, stamps)
+        self.wall_time += time.perf_counter() - t0
+        self.n_processed += len(compacts)
 
     @torch.inference_mode()
     def evaluation_protocol(self, out_dir, prefix: str = "estimate", gt_stamps=None,

@@ -1,8 +1,10 @@
 """GraphManager behaviour of the port that needs no JAX oracle: which
 optimize calls report their iteration count (the JAX package's rule, set at
 rgbdslam_v2_tpu/graph/manager.py in GraphManager.optimize), and, on the
-card (marker `cuda`), that the default configuration's host-decision path
-waits for the card once a frame. Imports no JAX, so it runs on the card:
+card (marker `cuda`): the default configuration's host-decision path waits
+for the card once a frame, the keep-all step never, and a group of frames
+replayed as one CUDA graph equals the same frames stepped one by one.
+Imports no JAX, so it runs on the card:
 
     python -m pytest --noconftest tests/test_torch_manager.py -q
 """
@@ -14,8 +16,10 @@ import pytest
 import torch
 
 from rgbdslam_v2_tpu_torch.config import ParameterServer, default_params
+from rgbdslam_v2_tpu_torch.core import alignment
 from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT, Intrinsics
 from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
+from rgbdslam_v2_tpu_torch.ops import detect
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
 torch.set_num_threads(1)
@@ -24,6 +28,15 @@ PARAMS = dict(
     max_keypoints=256, tpu_max_nodes=16, tpu_max_edges=128, tpu_candidate_batch=4,
     ransac_iterations=64, min_matches=12, optimizer_skip_step=100, keep_all_nodes=True,
     observability_threshold=0.5, tpu_drain_pipelined=False,
+)
+# bench.py's make_pipe configuration (keep-all, ydct 2.7, 4 frames a step,
+# encode-ahead, pipelined drains, inaffected optimize every 10 frames)
+BENCH = dict(
+    max_keypoints=600, tpu_max_nodes=1024, tpu_max_edges=8192, tpu_candidate_batch=8,
+    ransac_iterations=200, optimizer_skip_step=10, keep_all_nodes=True,
+    observability_threshold=0.5, pose_relative_to="inaffected", emm_skip_step=4,
+    tpu_ingest_format="ydct", tpu_dct_quality="2.7", tpu_gray_bits=8, tpu_depth_bits=10,
+    tpu_frames_per_step=4, tpu_encode_ahead=True,
 )
 
 
@@ -66,21 +79,26 @@ def _sync_sites(fn):
     return out
 
 
+def _render(frames):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    world = SyntheticWorld.create(seed=0, cam=TUM_DEFAULT)
+    poses, rgbs, depths = render_sequence(world, frames, seed=2, depth_noise_sigma=0.01,
+                                          device="cuda")
+    return poses, rgbs, np.clip(depths * 5000.0 + 0.5, 0, 65535).astype(np.uint16)
+
+
 @pytest.mark.cuda
 def test_default_path_reads_the_card_once_a_frame():
     """default_params() with no device argument on the card, 30 frames of
     640x480: each add_frame's decisions come from ONE device->host copy,
     made in graph/manager.py (the comparison result and the keypoint count
     packed together). The online optimize, which reads its convergence
-    flag, runs outside the count. The only other synchronizing calls
-    allowed are the SVD refits' status checks (core/alignment.py, ROADMAP
-    F6), backend.constant's one-time copy of a new constant, and on the
-    first frame torch's own one-time CUDA setup."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    world = SyntheticWorld.create(seed=0, cam=TUM_DEFAULT)
-    poses, rgbs, depths = render_sequence(world, 30, seed=2, depth_noise_sigma=0.01,
-                                          device="cuda")
+    flag on this path, runs outside the count. The only other
+    synchronizing calls allowed are backend.constant's one-time copy of a
+    new constant and, on the first frame, torch's own one-time CUDA setup
+    (no Kabsch refit waits for the card: ROADMAP F6)."""
+    poses, rgbs, depths = _render(30)
     pipe = SlamPipeline(TUM_DEFAULT, default_params())
     mgr = pipe.manager
     assert mgr.device.type == "cuda"
@@ -97,7 +115,7 @@ def test_default_path_reads_the_card_once_a_frame():
     per_frame = [_sync_sites(lambda: pipe.process_frame(
         rgbs[i], depths[i], i / 30.0, gt_pose=poses[0] if i == 0 else None))
         for i in range(len(rgbs))]
-    allowed = {"graph/manager.py", "core/alignment.py", "backend.py"}
+    allowed = {"graph/manager.py", "backend.py"}
     for i, sites in enumerate(per_frame):
         assert sites.count("graph/manager.py") == 1, (i, sites)
         assert set(sites) <= (allowed | {"outside"} if i == 0 else allowed), (i, sites)
@@ -113,3 +131,64 @@ def test_default_path_reads_the_card_once_a_frame():
     mgr.toggle_mapping(False)
     assert pipe.process_frame(rgbs[-1], depths[-1], len(rgbs) / 30.0)
     assert mgr.n_nodes == n - 1 and np.isfinite(mgr.localization_pose).all()
+
+
+@pytest.mark.cuda
+def test_keep_all_step_reads_the_card_never():
+    """bench.py's configuration one frame a step, 40 frames of 640x480:
+    after the first two frames (torch's and the port's one-time setup) no
+    frame makes a synchronizing call, the pipelined drains and the online
+    inaffected optimizes included. Every frame after the first launches the
+    Kabsch kernel refine_iterations times and the detect kernel once."""
+    poses, rgbs, depths = _render(40)
+    pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
+        {**BENCH, "tpu_frames_per_step": 1, "tpu_encode_ahead": False}))
+    detect.reset_launches()
+    alignment.reset_launches()
+    per_frame = [_sync_sites(lambda: pipe.process_frame(
+        rgbs[i], depths[i], i / 30.0, gt_pose=poses[0] if i == 0 else None))
+        for i in range(len(rgbs))]
+    assert all(not sites for sites in per_frame[2:]), per_frame
+    assert detect.LAUNCHES == len(rgbs)
+    assert alignment.LAUNCHES == pipe.params["refine_iterations"] * (len(rgbs) - 1)
+    assert pipe.manager.statistics()["nodes"] == len(rgbs)
+
+
+@pytest.mark.cuda
+def test_grouped_replay_equals_eager_steps():
+    """bench.py's configuration with 4 candidates (all predecessors, so the
+    candidates do not depend on when drains land) and no online optimize in
+    the run, as tests/test_round2_features.py holds the JAX package: 4
+    frames a step, replayed as CUDA graphs, against 1 frame a step, eager.
+    Trajectories agree within 1e-6 and the graphs' edges are equal; the
+    replays draw the RANSAC samples the eager steps draw. A replayed group
+    makes no synchronizing call and counts its kernels' launches."""
+    poses, rgbs, depths = _render(25)
+    stamps = np.arange(25) / 30.0
+    runs = {}
+    for n in (1, 4):
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
+            {**BENCH, "tpu_candidate_batch": 4, "optimizer_skip_step": 100,
+             "tpu_frames_per_step": n}))
+        group = pipe._process_group
+        replay_sites = []
+
+        def watched(*a, _group=group, _mgr=pipe.manager, **kw):
+            sg = _mgr.step_graph
+            before = (sg.captures, sg.eager_groups)
+            sites = _sync_sites(lambda: _group(*a, **kw))
+            if (sg.captures, sg.eager_groups) == before:
+                replay_sites.append(sites)
+
+        pipe._process_group = watched
+        detect.reset_launches()
+        alignment.reset_launches()
+        pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
+        runs[n] = (pipe.manager.poses(), pipe.manager.statistics(), detect.LAUNCHES,
+                   alignment.LAUNCHES, pipe.manager.step_graph, replay_sites)
+    (p1, s1, d1, k1, _, _), (p4, s4, d4, k4, sg, sites) = runs[1], runs[4]
+    assert (sg.captures, sg.eager_groups, sg.replays) == (1, 1, 5)
+    assert len(sites) == 4 and all(not s for s in sites), sites
+    assert d4 == d1 == 25 and k4 == k1 == 4 * 24
+    assert s4 == s1
+    np.testing.assert_allclose(p4, p1, rtol=0, atol=1e-6)

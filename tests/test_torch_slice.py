@@ -74,16 +74,34 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"use_robot_odom": True}, {"tpu_ingest_format": "ydct"}, {"tpu_frames_per_step": 2},
-    {"tpu_encode_ahead": True}, {"use_icp": True}, {"global_loop_candidates": 2},
-    {"tpu_wire_delta": True}, {"feature_extractor_type": "SIFT"},
-    {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
-    {"g2o_transformation_refinement": 2}, {"tpu_drain_pipelined": True},
+    {"use_robot_odom": True}, {"tpu_gray_bits": 6}, {"tpu_ingest_format": "raw"},
+    {"tpu_wire_delta": True, "tpu_frames_per_step": 2}, {"use_icp": True},
+    {"global_loop_candidates": 2}, {"tpu_wire_delta": True},
+    {"feature_extractor_type": "SIFT"}, {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
+    {"g2o_transformation_refinement": 2}, {"tpu_frames_per_step": 3},
 ])
 def test_config_outside_the_slice_raises(override):
     name = next(iter(override))
     with pytest.raises(NotImplementedError, match=name):
         SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"tpu_dct_quality": "2.5"},
+    # a frame that is not a multiple of 8 cannot carry the ydct wire: the
+    # JAX package falls back to yc12, the port refuses
+    {"tpu_ingest_format": "ydct", "cam": (100.0, 100.0, 66.0, 50.0, 132, 100)},
+])
+def test_ydct_outside_its_domain_raises(override):
+    over = dict(override)
+    cam = Intrinsics(*over.pop("cam", CAM))
+    if "tpu_dct_quality" in over:  # an unknown quality is a ValueError, as in JAX
+        with pytest.raises(ValueError, match="tpu_dct_quality"):
+            SlamPipeline(cam, ParameterServer({**PARAMS, "tpu_ingest_format": "ydct",
+                                               **over}), device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="tpu_ingest_format"):
+            SlamPipeline(cam, ParameterServer({**PARAMS, **over}), device="cpu")
 
 
 @pytest.mark.parametrize("override", [
@@ -93,6 +111,8 @@ def test_config_outside_the_slice_raises(override):
     # off the keep-all fast path the JAX package ignores its dispatch options
     {"keep_all_nodes": False, "tpu_drain_pipelined": True, "tpu_frames_per_step": 2,
      "tpu_encode_ahead": True},
+    {"tpu_ingest_format": "ydct"}, {"tpu_frames_per_step": 2}, {"tpu_encode_ahead": True},
+    {"tpu_drain_pipelined": True},
 ])
 def test_config_inside_the_port_builds(override):
     pipe = SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")

@@ -2,13 +2,16 @@
 """Profile the PyTorch port's per-frame step on one CUDA card.
 
 Usage: python3 tools/profile_torch_port.py [--frames 120] [--window 40]
+                                           [--config keepall|make_pipe]
 
-Renders the bench sequence on the card and runs the keep-all cell, both
-taken from chip_smoke.py (render_bench, bench_params), and traces a steady window of
-frames with torch.profiler: prints the device-busy share of the window
-(union of kernel intervals over wall time), the top operators by device time
-and by host time, and per-frame figures. Outside the profiler it also times
-the host yc12 encode of the window's frames and one online optimize (3 LM
+Renders the bench sequence on the card and runs a keep-all configuration
+taken from chip_smoke.py (render_bench; bench_params, one frame a step, or
+make_pipe_params, bench.py's own: ydct, 4 frames a step as CUDA graphs),
+and traces a steady window of frames, fed through run_arrays, with
+torch.profiler: prints the device-busy share of the window (union of
+kernel intervals over wall time), the top operators by device time and by
+host time, and per-frame figures. Outside the profiler it also times the
+host encode of the window's frames and one online optimize (3 LM
 iterations) of the graph as it stands after the window.
 """
 from __future__ import annotations
@@ -41,14 +44,14 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--window", type=int, default=40)
+    ap.add_argument("--config", choices=("keepall", "make_pipe"), default="keepall")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import WORLD_SEED, bench_params, render_bench
+    from chip_smoke import WORLD_SEED, bench_params, make_pipe_params, render_bench
     from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
-    from rgbdslam_v2_tpu_torch.graph.ingest import compact_frame
     from rgbdslam_v2_tpu_torch.io import SyntheticWorld
     from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
@@ -56,16 +59,14 @@ def main() -> None:
         sys.exit("needs a CUDA device")
     world = SyntheticWorld.create(seed=WORLD_SEED, cam=TUM_DEFAULT)
     poses, rgbs, depths, stamps = render_bench(world, args.frames, "cuda")
-    pipe = SlamPipeline(TUM_DEFAULT, bench_params(), device="cuda")
+    params = bench_params() if args.config == "keepall" else make_pipe_params()
+    pipe = SlamPipeline(TUM_DEFAULT, params, device="cuda")
     n0 = args.frames - args.window
-    for i in range(n0):
-        pipe.process_frame(rgbs[i], depths[i], float(stamps[i]),
-                           gt_pose=poses[0] if i == 0 else None)
+    pipe.run_arrays(rgbs[:n0], depths[:n0], stamps[:n0], gt_poses=poses)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(n0, args.frames):
-            pipe.process_frame(rgbs[i], depths[i], float(stamps[i]))
+        pipe.run_arrays(rgbs[n0:], depths[n0:], stamps[n0:])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -76,13 +77,13 @@ def main() -> None:
           f"[{torch.cuda.get_device_name(0)}]")
     t0 = time.perf_counter()
     for i in range(n0, args.frames):
-        compact_frame(rgbs[i], depths[i], pipe.manager.emm_stride, pipe.manager.depth_bits)
+        pipe.manager.encode(rgbs[i], depths[i])
     enc_ms = 1e3 * (time.perf_counter() - t0) / args.window
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe.manager.optimize(iterations=3, blocking=True)
     torch.cuda.synchronize()
-    print(f"host yc12 encode {enc_ms:.3f} ms/frame; one online optimize (3 LM iterations, "
+    print(f"host {pipe.manager.ingest_fmt} encode {enc_ms:.3f} ms/frame; one online optimize (3 LM iterations, "
           f"{pipe.manager.n_nodes} nodes, {pipe.manager.n_edges} edge slots) "
           f"{1e3 * (time.perf_counter() - t0):.1f} ms")
     ka = prof.key_averages()
