@@ -7,7 +7,8 @@ Phases, each printing one or more lines; any failed check exits non-zero
 and prints no result:
   1. device and build: the card's name and power limit (nvidia-smi), torch
      and CUDA versions, and the time to build csrc/detect_corners.cu and
-     csrc/kabsch.cu (one nvcc a source, started together);
+     csrc/kabsch.cu (one nvcc a source, started together; kabsch.cu holds
+     the Kabsch and the RANSAC refine kernels);
   2. kernel against plain: the one-launch detect kernel on the four pyramid
      levels of a 640x480 frame the port renders, against its plain torch
      version on each level, at thresholds 0.06, 0.015 and 0.001875 (the
@@ -27,7 +28,18 @@ and prints no result:
      = 0) and collinear points (a proper rotation); then its device time at
      the main path's shape (8 candidates x 300 matches) beside the plain
      version's and beside torch.linalg.svd + det of the same 8 matrices,
-     and its bound;
+     and its bound. The RANSAC refine kernel (refine_iterations=4 refits,
+     max_mahal_sq=9, one launch for all candidates) against its plain
+     version run in float64 on the same inputs, on 512 and on 8 candidates
+     of 300 matches (refine_problems): T within KABSCH_TOL, inlier masks
+     equal except at matches whose float64 m2 lies within 1e-4 x
+     max_mahal_sq of the threshold in one of the gates (counted; n_inliers
+     may differ by that count), rmse within REFINE_RMSE_RTOL; its float32
+     difference is printed too; a candidate with no valid match and one
+     with zero weights equal to the plain version; then its device time at
+     the main path's shape (8 x 300, 4 refits) beside the plain version's
+     and the old route's (one Kabsch kernel launch a refit plus the torch
+     gate ops), the old route's device ops, and the bound;
   3. main path: the bench sequence (orbit in the synthetic room, 640x480,
      depth noise 0.01 z^2 with 1/5000 m quantization) rendered on the card;
      the ydct luma decode on the card against the numpy decoder on its
@@ -37,7 +49,9 @@ and prints no result:
      (ORB-600 over 4 levels, 8 candidates, RANSAC-200, EMM on); prints fps
      over the frames after the 20 warm-up frames, the graph statistics and
      the detect kernel's launch count, which must equal the frames
-     processed (one launch a frame);
+     processed (one launch a frame), the refine kernel's, which must be
+     one a frame after the first, and the Kabsch kernel's, which must be 0
+     (the step no longer launches it);
   4. protocol: the 5-level evaluation protocol, ATE L0..L4 against the exact
      ground truth; L4 must be at most 0.03 m;
   5. default configuration: SlamPipeline(TUM_DEFAULT, default_params(),
@@ -48,7 +62,8 @@ and prints no result:
      DEFAULT_FRAMES frames of the same sequence, 20 warm-up frames; prints
      fps, the graph (nodes, dropped frames, sequential / loop /
      constant-position edges, keyframes), detect launches a frame (must be
-     1), the median ms of one online optimize (host clock, synchronized),
+     1), refine launches (one a frame after the first) and Kabsch launches
+     (0), the median ms of one online optimize (host clock, synchronized),
      peak device memory and the protocol's ATE L0..L4 (finite, L4 at most
      DEFAULT_ATE_L4_MAX), and fails if any optimize used the dense solver.
   6. bench configuration: bench.py's make_pipe parameters exactly as it
@@ -58,7 +73,8 @@ and prints no result:
      warm-up frames one at a time as bench.py feeds them, then the rest
      through run_arrays: fps, the graph (nodes, active edges,
      constant-position edges), detect launches (must equal the frames),
-     Kabsch launches a frame (must equal refine_iterations), CUDA graphs
+     refine launches (one a frame after the first), Kabsch launches (0),
+     CUDA graphs
      captured, eager warm-up groups and replays, synchronizing calls
      (torch.cuda.set_sync_debug_mode) in the timed groups that only
      replayed (must be 0) and in those that warmed up or captured a graph,
@@ -70,8 +86,9 @@ and prints no result:
      statistics, and at least one replay, or it fails.
 
 Before the last line it prints one JSON object with the kernels' measured
-numbers (launches from phase 6's run, the bench configuration); the last
-line is {"ok": true, "device": {...}}.
+numbers (launches from phase 6's run, the bench configuration; the Kabsch
+kernel's are 0 there, its refits having moved into the refine kernel); the
+last line is {"ok": true, "device": {...}}.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -79,6 +96,7 @@ tools/profile_torch_port.py imports them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -104,6 +122,19 @@ KABSCH_OPS_PER_PROBLEM = 1200
 # float32 the plain version's own rounding reaches ~1.1e-5 m in t at the
 # test problems' 2-6 m centroids)
 KABSCH_TOL = 1e-5
+FP64_OPS_PER_S = 34e12  # H100 SXM float64 rate outside the tensor cores (data sheet)
+# the RANSAC refine kernel: main-path refits and gate, kernel against the
+# plain version in float64 (T within KABSCH_TOL, rmse relative)
+REFINE_ITERATIONS = 4
+MAX_MAHAL_SQ = 9.0
+REFINE_RMSE_RTOL = 1e-5
+NEAR_THRESHOLD = 1e-4  # x max_mahal_sq: a float64 m2 this close may gate either way
+# float operations (double in the kernel) of the refine loop: a weighted
+# match in one fit's moment pass (shift, the 16 weighted sums), a valid
+# match in one gate (R s + t - d, Sigma, the adjugate solve, the quadratic
+# form), and one fit's 3x3 part
+REFINE_FIT_OPS_PER_MATCH = 40
+REFINE_GATE_OPS_PER_MATCH = 120
 EQUAL_FRAMES = 60  # frames of the grouped-equality phase
 ATE_L4_MAX = 0.03  # metres
 # The default configuration closes no loop (its 8 candidate slots go to 4
@@ -160,23 +191,41 @@ def device_ms(fn, n: int = 20):
     return sum(spans) / n / 1e3 if spans else None
 
 
+def device_ops(fn) -> int:
+    """Device activities (kernels, copies) one call of fn records in a
+    torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type.name == "CUDA" for e in prof.events())
+
+
 def fmt_ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
+# bench.py's make_pipe configuration (bench.py:170-207, n_nodes=1024,
+# n_edges=8192), parameter for parameter
+MAKE_PIPE = dict(
+    max_keypoints=600, tpu_max_nodes=1024, tpu_max_edges=8192, tpu_candidate_batch=8,
+    ransac_iterations=200, optimizer_skip_step=10, keep_all_nodes=True,
+    observability_threshold=0.5, pose_relative_to="inaffected", emm_skip_step=4,
+    tpu_ingest_format="ydct", tpu_dct_quality="2.7", tpu_gray_bits=8, tpu_depth_bits=10,
+    tpu_frames_per_step=4, tpu_encode_ahead=True,
+)
+
+
 def make_pipe_params(**over):
-    """bench.py's make_pipe configuration (bench.py:170-207, n_nodes=1024,
-    n_edges=8192), parameter for parameter; `over` changes only the
+    """MAKE_PIPE as the port's ParameterServer; `over` changes only the
     equality phase's copy."""
     from rgbdslam_v2_tpu_torch.config import ParameterServer
 
-    return ParameterServer({**dict(
-        max_keypoints=600, tpu_max_nodes=1024, tpu_max_edges=8192, tpu_candidate_batch=8,
-        ransac_iterations=200, optimizer_skip_step=10, keep_all_nodes=True,
-        observability_threshold=0.5, pose_relative_to="inaffected", emm_skip_step=4,
-        tpu_ingest_format="ydct", tpu_dct_quality="2.7", tpu_gray_bits=8, tpu_depth_bits=10,
-        tpu_frames_per_step=4, tpu_encode_ahead=True,
-    ), **over})
+    return ParameterServer({**MAKE_PIPE, **over})
 
 
 def kabsch_problems(rng, B, N):
@@ -197,6 +246,102 @@ def kabsch_problems(rng, B, N):
            + rng.normal(0.0, 0.01, (B, N, 3)))
     wts = rng.uniform(0.0, 1.0, (B, N)) * (rng.uniform(size=(B, N)) > 0.3)
     return [a.astype(np.float32) for a in (src, dst, wts)]
+
+
+def refine_problems(rng, B, M):
+    """B candidates of M matches as ransac_register hands them to the
+    refinement (numpy-seeded): points 1-5 m deep in a 640x480 view, a
+    random motion, noise from the depth model, 30% outliers moved up to
+    0.5 m, 95% valid; the depth weights and point covariances of
+    ransac_register; a start T 2 mrad and 3 mm off the motion and its
+    isotropic-gate inliers, as the hypothesis sweep leaves them. Returns
+    the (src, dst, w_depth, src_cov, dst_cov, valid, T, inliers) arrays."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core.noise import point_covariance_diag
+
+    def rot(v):  # rotation vectors (B, 3) -> (B, 3, 3), Rodrigues
+        th = np.linalg.norm(v, axis=1)[:, None, None]
+        k = v / np.maximum(th[:, 0], 1e-12)
+        K = np.zeros((len(v), 3, 3))
+        K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+        K = K - K.transpose(0, 2, 1)
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+    def cov(z):
+        return point_covariance_diag(torch.from_numpy(z), 525.0, 525.0, 0.01).numpy()
+
+    z = rng.uniform(1.0, 5.0, (B, M))
+    src = np.stack([rng.uniform(-0.6, 0.6, (B, M)) * z, rng.uniform(-0.45, 0.45, (B, M)) * z,
+                    z], -1)
+    rv, tv = rng.normal(0.0, 0.05, (B, 3)), rng.normal(0.0, 0.1, (B, 3))
+    dst = src @ rot(rv).transpose(0, 2, 1) + tv[:, None]
+    dst += rng.normal(size=dst.shape) * np.sqrt(cov(z.astype(np.float32)))
+    out = rng.uniform(size=(B, M)) < 0.3
+    dst[out] += rng.uniform(-0.5, 0.5, (int(out.sum()), 3))
+    valid = rng.uniform(size=(B, M)) < 0.95
+    src, dst = src.astype(np.float32), dst.astype(np.float32)
+    w = np.where(valid, 1.0 / (np.maximum(src[..., 2], 1e-3) * np.maximum(dst[..., 2], 1e-3)),
+                 0.0).astype(np.float32)
+    src_cov, dst_cov = cov(src[..., 2]), cov(dst[..., 2])
+    T = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    T[:, :3, :3] = rot(rv + rng.normal(0.0, 0.002, (B, 3)))
+    T[:, :3, 3] = tv + rng.normal(0.0, 0.003, (B, 3))
+    diff = src @ T[:, :3, :3].transpose(0, 2, 1) + T[:, None, :3, 3] - dst
+    inl = valid & ((diff * diff).sum(-1) / (src_cov + dst_cov).mean(-1) < MAX_MAHAL_SQ)
+    return src, dst, w, src_cov, dst_cov, valid, T, inl
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """module.name = value inside the block (a measurement's probe)."""
+    found = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, found)
+
+
+def refine_against_plain(args, iterations=REFINE_ITERATIONS, thr=MAX_MAHAL_SQ) -> dict:
+    """The refine kernel on the card tensors `args` (refine_problems' eight,
+    on the card) against its plain version run in float64 on the same
+    inputs, and against it in float32: the differences, the matches whose
+    float64 m2 lies within NEAR_THRESHOLD x thr of thr in any gate, and
+    whether every check of the kernel's precision holds."""
+    import torch
+    from rgbdslam_v2_tpu_torch.ops import registration
+
+    got = registration.ransac_refine(*args, iterations, thr)
+    gates = []
+    exact = registration.mahalanobis_sq
+
+    def recording(*a):  # every gate's float64 m2
+        gates.append(exact(*a))
+        return gates[-1]
+
+    with patched(registration, "mahalanobis_sq", recording):
+        ref = registration.ransac_refine_plain(
+            *(a.double() if a.is_floating_point() else a for a in args), iterations, thr)
+    ref32 = registration.ransac_refine_plain(*args, iterations, thr)
+    torch.cuda.synchronize()
+    valid = args[5]
+    near = torch.zeros_like(valid)
+    for m2 in gates:
+        near |= valid & ((m2 - thr).abs() <= NEAR_THRESHOLD * thr)
+    n_near = near.sum(-1)
+    mask_bad = (got[1] != ref[1]) & ~near
+    err_t = float((got[0] - ref[0]).abs().max())
+    err_n = (got[2] - ref[2]).abs()
+    r64 = ref[3]
+    err_rmse = float(((got[3].double() - r64).abs() / r64.clamp(min=1e-30)).max())
+    return dict(
+        err_t=err_t, err_rmse=err_rmse, near=int(n_near.sum()),
+        mask_diff=int((got[1] != ref[1]).sum()), err_t32=float((got[0] - ref32[0]).abs().max()),
+        mask_diff32=int((got[1] != ref32[1]).sum()), n_diff32=int((got[2] - ref32[2]).abs().max()),
+        ok=(err_t <= KABSCH_TOL and not bool(mask_bad.any()) and bool((err_n <= n_near).all())
+            and err_rmse <= REFINE_RMSE_RTOL),
+        got=got, ref=ref)
 
 
 def sync_sites(fn) -> list:
@@ -226,13 +371,14 @@ def bench_config_run(poses, rgbs, depths, stamps, dev, **over) -> dict:
     from rgbdslam_v2_tpu_torch.core import alignment
     from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
     from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
-    from rgbdslam_v2_tpu_torch.ops import detect
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
     from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
     frames = len(rgbs)
     torch.cuda.reset_peak_memory_stats()
     detect.reset_launches()
     alignment.reset_launches()
+    registration.reset_launches()
     pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
     mgr = pipe.manager
     for i in range(WARMUP):  # as bench.py warms up: one frame at a time
@@ -258,6 +404,7 @@ def bench_config_run(poses, rgbs, depths, stamps, dev, **over) -> dict:
     out = dict(
         fps=(frames - WARMUP) / dt, ms_per_frame=1e3 * dt / (frames - WARMUP),
         detect_launches=detect.LAUNCHES, kabsch_launches=alignment.LAUNCHES,
+        refine_launches=registration.LAUNCHES,
         captures=sg.captures, eager_groups=sg.eager_groups, replays=sg.replays,
         replay_host_ms=1e3 * sg.replay_s / max(sg.replays, 1),
         replay_groups=len(syncs["replay"]), setup_groups=len(syncs["setup"]),
@@ -334,7 +481,7 @@ def main() -> None:
     from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
     from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
     from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor
-    from rgbdslam_v2_tpu_torch.ops import dct_wire, detect, fast
+    from rgbdslam_v2_tpu_torch.ops import dct_wire, detect, fast, registration
     from rgbdslam_v2_tpu_torch.ops.image import resize_bilinear
     from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
@@ -481,6 +628,74 @@ def main() -> None:
               f"{fmt_ms(kab_times['library'][0])}, event span {kab_times['library'][1]:.4f} ms; "
               f"bound {kab_bound * 1e3:.4f} us ({kab_by})")
 
+        # the RANSAC refine kernel against its plain version
+        ref_err = 0.0
+        for n_cand in (512, 8):
+            probs = [torch.from_numpy(a).to(dev)
+                     for a in refine_problems(np.random.default_rng(n_cand), n_cand, 300)]
+            r = refine_against_plain(probs)
+            phase(f"[2 refine] {n_cand} candidates x 300 matches, {REFINE_ITERATIONS} refits, "
+                  f"against the plain version in float64: max abs err T {r['err_t']:.3e} (limit "
+                  f"{KABSCH_TOL}), inlier masks differ at {r['mask_diff']} matches, {r['near']} "
+                  f"within {NEAR_THRESHOLD} x max_mahal_sq of the threshold, rmse rel err "
+                  f"{r['err_rmse']:.2e} (limit {REFINE_RMSE_RTOL}); inliers a candidate "
+                  f"{float(r['got'][2].float().mean()):.1f} of {float(probs[5].sum(-1).float().mean()):.1f} "
+                  f"valid; against it in float32: T {r['err_t32']:.3e}, masks differ at "
+                  f"{r['mask_diff32']}, n_inliers by up to {r['n_diff32']}")
+            if not r["ok"]:
+                fail(f"refine kernel differs from the plain version ({n_cand} candidates): "
+                     f"{ {k: v for k, v in r.items() if k not in ('got', 'ref')} }")
+            ref_err = max(ref_err, r["err_t"])
+        # degenerate candidates: no valid match; zero weights (T2 = I)
+        deg = [a.clone() for a in probs]
+        deg[5][0] = False
+        deg[6][0] = torch.eye(4, device=dev)
+        deg[7][0] = False
+        deg[2][1] = 0.0
+        r = refine_against_plain(deg)
+        got, ref = r["got"], r["ref"]
+        phase(f"[2 refine] no valid match: T kept {bool(torch.equal(got[0][0], deg[6][0]))}, "
+              f"n_inliers {int(got[2][0])}, rmse {float(got[3][0])}; zero weights: T equal to "
+              f"the plain version's within {float((got[0][1] - ref[0][1]).abs().max()):.1e}; all "
+              f"checks as above: {r['ok']}")
+        if not (r["ok"] and torch.equal(got[0][0], deg[6][0]) and int(got[2][0]) == 0
+                and float(got[3][0]) == 0.0):
+            fail("refine kernel on degenerate candidates differs from the plain version")
+        # timing at the main path's shape: 8 candidates x 300 matches, 4 refits
+        refine_args = (*probs, REFINE_ITERATIONS, MAX_MAHAL_SQ)
+
+        def old_route():  # the parent's step: the plain loop, its fits on the Kabsch kernel
+            with patched(registration, "weighted_kabsch_plain", alignment.weighted_kabsch):
+                return registration.ransac_refine_plain(*refine_args)
+        ref_times = {
+            "kernel": (device_ms(lambda: registration.ransac_refine(*refine_args)),
+                       median_ms(lambda: registration.ransac_refine(*refine_args))),
+            "plain": (device_ms(lambda: registration.ransac_refine_plain(*refine_args)),
+                      median_ms(lambda: registration.ransac_refine_plain(*refine_args))),
+            "old_route": (device_ms(old_route), median_ms(old_route)),
+        }
+        old_ops = device_ops(old_route)
+        n_valid = probs[5].sum(-1).double()
+        n_inl = registration.ransac_refine(*refine_args)[2].double()
+        ref_bytes = 8 * (300 * 55 + 2 * 64 + 8)  # 54 B a match in, 1 out; T in and out, n, rmse
+        ref_bytes_ms = ref_bytes / HBM_BYTES_PER_S * 1e3
+        ref_ops = float((REFINE_ITERATIONS * (n_inl * REFINE_FIT_OPS_PER_MATCH
+                                              + KABSCH_OPS_PER_PROBLEM)
+                         + (REFINE_ITERATIONS + 1) * n_valid * REFINE_GATE_OPS_PER_MATCH).sum())
+        ref_ops_ms = ref_ops / FP64_OPS_PER_S * 1e3
+        ref_bound = max(ref_bytes_ms, ref_ops_ms)
+        ref_by = "bytes" if ref_bytes_ms >= ref_ops_ms else "operations"
+        dk = ref_times["kernel"][0]
+        phase(f"[2 refine] 8 x 300, {REFINE_ITERATIONS} refits (one frame's refinement): kernel "
+              f"device {fmt_ms(dk)}, event span {ref_times['kernel'][1]:.4f} ms; plain device "
+              f"{fmt_ms(ref_times['plain'][0])}, event span {ref_times['plain'][1]:.4f} ms; old "
+              f"route ({REFINE_ITERATIONS} Kabsch launches + torch ops) device "
+              f"{fmt_ms(ref_times['old_route'][0])}, event span "
+              f"{ref_times['old_route'][1]:.4f} ms, {old_ops} device ops; bound "
+              f"{ref_bound * 1e3:.4f} us ({ref_by}: {ref_bytes} B, {ref_ops:.0f} float64 ops); "
+              f"share of bound "
+              f"{'not measured' if dk is None else f'{100.0 * ref_bound / dk:.2f}%'}")
+
     # ---- 3. main path --------------------------------------------------
     t0 = time.perf_counter()
     poses, rgbs, depths, stamps = render_bench(world, args.frames, dev)
@@ -501,6 +716,7 @@ def main() -> None:
         fail(f"ydct decode on the card differs from numpy by {worst} grey levels")
     detect.reset_launches()  # count only the main path's launches
     alignment.reset_launches()
+    registration.reset_launches()
     pipe = SlamPipeline(TUM_DEFAULT, bench_params(), device=dev)
     for i in range(WARMUP):
         pipe.process_frame(rgbs[i], depths[i], float(stamps[i]),
@@ -514,13 +730,15 @@ def main() -> None:
     dt = time.perf_counter() - t0
     launches = detect.LAUNCHES
     kab_launches_keepall = alignment.LAUNCHES
+    ref_launches_keepall = registration.LAUNCHES
     fps = (args.frames - WARMUP) / dt
     stats = pipe.manager.statistics()
     phase(f"[3 main] {fps:.2f} fps over {args.frames - WARMUP} frames "
           f"({1e3 * dt / (args.frames - WARMUP):.2f} ms/frame, compact encode included); "
           f"nodes {stats['nodes']}, edges {stats['edges']} ({stats['active_edges']} active, "
           f"{stats['sequential_edges']} sequential, {stats['loop_edges']} loop), keyframes "
-          f"{stats['keyframes']}; detect launches {launches}; peak device memory "
+          f"{stats['keyframes']}; detect launches {launches}, refine launches "
+          f"{ref_launches_keepall}, Kabsch launches {kab_launches_keepall}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if pipe.n_processed != args.frames or stats["nodes"] != args.frames:
         fail(f"processed {pipe.n_processed} frames, {stats['nodes']} nodes; "
@@ -528,10 +746,10 @@ def main() -> None:
     if launches != pipe.n_processed:
         fail(f"detect kernel launched {launches} times, expected one a frame "
              f"({pipe.n_processed})")
-    refits = pipe.params["refine_iterations"]
-    if kab_launches_keepall != refits * (pipe.n_processed - 1):
-        fail(f"Kabsch kernel launched {kab_launches_keepall} times, expected {refits} a "
-             f"frame after the first")
+    if ref_launches_keepall != pipe.n_processed - 1 or kab_launches_keepall:
+        fail(f"refine kernel launched {ref_launches_keepall} times, Kabsch kernel "
+             f"{kab_launches_keepall} times; expected one refine a frame after the first and "
+             f"no Kabsch")
 
     # ---- 4. protocol ---------------------------------------------------
     t0 = time.perf_counter()
@@ -554,6 +772,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     detect.reset_launches()
     alignment.reset_launches()
+    registration.reset_launches()
     pipe = SlamPipeline(TUM_DEFAULT, default_params(), device=dev)
     mgr = pipe.manager
     online_ms = []
@@ -579,6 +798,7 @@ def main() -> None:
     del mgr.optimize
     launches_default = detect.LAUNCHES
     kab_launches_default = alignment.LAUNCHES
+    ref_launches_default = registration.LAUNCHES
     fps_default = (n_default - WARMUP) / dt
     stats = mgr.statistics()
     n_const = sum(t == EDGE_CONST_POSITION for t in mgr.host.edge_types)
@@ -588,7 +808,9 @@ def main() -> None:
           f"nodes {stats['nodes']}, dropped frames {pipe.n_dropped}, edges {stats['edges']} "
           f"({stats['sequential_edges']} sequential, {stats['loop_edges']} loop, {n_const} "
           f"constant-position), keyframes {stats['keyframes']}; detect launches "
-          f"{launches_default} for {pipe.n_processed} frames; online optimize median "
+          f"{launches_default} for {pipe.n_processed} frames, refine launches "
+          f"{ref_launches_default}, Kabsch launches {kab_launches_default}; online optimize "
+          f"median "
           f"{statistics.median(online_ms):.2f} ms over {len(online_ms)} calls "
           f"(min {min(online_ms):.2f}, max {max(online_ms):.2f}); solver calls "
           f"{mgr.solver_calls}; peak device memory {peak_default:.2f} GiB")
@@ -598,9 +820,10 @@ def main() -> None:
     if launches_default != pipe.n_processed:
         fail(f"detect kernel launched {launches_default} times on the default path, "
              f"expected one a frame ({pipe.n_processed})")
-    if kab_launches_default != refits * (pipe.n_processed - 1):
-        fail(f"Kabsch kernel launched {kab_launches_default} times on the default path, "
-             f"expected {refits} a frame after the first")
+    if ref_launches_default != pipe.n_processed - 1 or kab_launches_default:
+        fail(f"refine kernel launched {ref_launches_default} times, Kabsch kernel "
+             f"{kab_launches_default} times on the default path; expected one refine a frame "
+             f"after the first and no Kabsch")
     n_default_frames = pipe.n_processed
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
@@ -626,6 +849,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     b = bench_config_run(poses, rgbs, depths, stamps, dev)
     launches_bench, kab_launches_bench = b["detect_launches"], b["kabsch_launches"]
+    ref_launches_bench = b["refine_launches"]
     stats = b["stats"]
     phase(f"[6 bench] make_pipe as bench.py sets it (ydct 2.7, 4 frames a step, encode-ahead, "
           f"pipelined drains, inaffected): {b['fps']:.2f} fps over {args.frames - WARMUP} "
@@ -633,9 +857,10 @@ def main() -> None:
           f"{stats['nodes']}, edges {stats['edges']} ({stats['active_edges']} active, "
           f"{stats['sequential_edges']} sequential, {stats['loop_edges']} loop, "
           f"{b['const_edges']} constant-position), keyframes {stats['keyframes']}")
-    phase(f"[6 bench] detect launches {launches_bench} for {args.frames} frames; Kabsch "
-          f"launches {kab_launches_bench} = {kab_launches_bench / (args.frames - 1):.3f} a "
-          f"frame after the first; CUDA graphs captured {b['captures']}, eager warm-up groups "
+    phase(f"[6 bench] detect launches {launches_bench} for {args.frames} frames; refine "
+          f"launches {ref_launches_bench} = {ref_launches_bench / (args.frames - 1):.3f} a frame "
+          f"after the first; Kabsch launches {kab_launches_bench}; CUDA graphs captured "
+          f"{b['captures']}, eager warm-up groups "
           f"{b['eager_groups']}, replays {b['replays']} (host {b['replay_host_ms']:.3f} ms a "
           f"replay call); synchronizing calls: {b['replay_syncs']} in {b['replay_groups']} "
           f"replayed groups, {len(b['setup_sites'])} in {b['setup_groups']} warm-up/capture "
@@ -647,9 +872,10 @@ def main() -> None:
     if launches_bench != args.frames:
         fail(f"bench configuration: detect launched {launches_bench} times for "
              f"{args.frames} frames")
-    if kab_launches_bench != refits * (args.frames - 1):
-        fail(f"bench configuration: Kabsch launched {kab_launches_bench} times, expected "
-             f"{refits} a frame after the first")
+    if ref_launches_bench != args.frames - 1 or kab_launches_bench:
+        fail(f"bench configuration: refine launched {ref_launches_bench} times, Kabsch "
+             f"{kab_launches_bench} times; expected one refine a frame after the first and no "
+             f"Kabsch")
     if not b["replays"] or b["replay_syncs"]:
         fail(f"bench configuration: {b['replays']} replays, {b['replay_syncs']} synchronizing "
              f"calls in replayed groups ({sorted(set(b['replay_sites']))})")
@@ -711,6 +937,9 @@ def main() -> None:
         "route": "cuda",
         "source": "rgbdslam_v2_tpu_torch/csrc/kabsch.cu",
         "replaces": "rgbdslam_v2_tpu/core/alignment.py:18",
+        # 0 on every path: the step's refits run in ransac_refine now; the
+        # kernel stays for weighted_kabsch's other callers (Horn alignment)
+        "main_path": False,
         "launches": kab_launches_bench,
         "launches_per_frame": kab_launches_bench / (args.frames - 1),
         "launches_keepall_one_frame_a_step": kab_launches_keepall,
@@ -726,6 +955,27 @@ def main() -> None:
         "event_ms": kab_times["kernel"][1],
         "plain_event_ms": kab_times["plain"][1],
         "library_event_ms": kab_times["library"][1],
+    }, {
+        "name": "ransac_refine",
+        "route": "cuda",
+        "source": "rgbdslam_v2_tpu_torch/csrc/kabsch.cu",
+        "replaces": "rgbdslam_v2_tpu/ops/registration.py:262",
+        "launches": ref_launches_bench,
+        "launches_per_frame": ref_launches_bench / (args.frames - 1),
+        "launches_keepall_one_frame_a_step": ref_launches_keepall,
+        "launches_default": ref_launches_default,
+        "max_abs_err": ref_err,
+        # one frame's refinement: 8 candidates x 300 matches, 4 refits
+        "ms": ref_times["kernel"][0],
+        "plain_ms": ref_times["plain"][0],
+        "bound_ms": ref_bound,
+        "bound_by": ref_by,
+        "library_ms": None,  # no single PyTorch call computes the refit-and-gate loop
+        "old_route_ms": ref_times["old_route"][0],  # 4 Kabsch launches + the torch gate ops
+        "old_route_device_ops": old_ops,
+        "event_ms": ref_times["kernel"][1],
+        "plain_event_ms": ref_times["plain"][1],
+        "old_route_event_ms": ref_times["old_route"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

@@ -34,10 +34,11 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # no FMA contraction: the kernels repeat the plain torch version's
-    # operation order, so without contraction they round identically
-    "--fmad=false",
 ]
+# flags of one source: detect_corners.cu repeats its plain torch version's
+# float32 operation order and, without FMA contraction, rounds identically;
+# kabsch.cu computes in double against a float64 reference and contracts
+SOURCE_FLAGS = {"detect_corners": ["--fmad=false"]}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -92,10 +93,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def nvcc_flags(name: str) -> List[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def library_path(name: str) -> Path:
     """Build location of csrc/<name>.cu, keyed by the source's hash."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -110,7 +115,7 @@ def build_kernel_libraries(names) -> List[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         jobs.append((name, out, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []

@@ -13,8 +13,9 @@ tensors, and every write indexes with them (``index_copy_``), so the
 step's kernels do not depend on the frame: :class:`StepGraph` captures
 ``slam_stepN`` once per (n, FAST threshold, wire length) and replays it
 for every later group, with the group's inputs copied into static buffers
-first. The capture needs a step without host syncs: the Kabsch refits run
-in ``csrc/kabsch.cu``, not cuSOLVER.
+first. The capture needs a step without host syncs: the RANSAC refits and
+final score run in one kernel launch (``csrc/kabsch.cu``'s
+``ransac_refine_f32``), not through cuSOLVER.
 
 ``commit_node`` is the in-place write shared with the host-decision path
 (JAX ``manager._commit_node``).
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core import alignment
-from ..ops import detect
+from ..ops import detect, registration
 from ..optim.pose_graph import GraphState
 from .compare import compare_to_candidates
 from .ingest import prepare_and_extract
@@ -244,6 +245,11 @@ def slam_stepN(store: NodeStore, graph: GraphState, g: GroupInputs,
     return torch.stack(sums)
 
 
+# modules whose LAUNCHES count kernel launches; a capture records its
+# launches and a replay adds them
+_COUNTED = (detect, alignment, registration)
+
+
 class _Captured:
     """One captured n-frame step: static inputs, graph, static outputs and
     the kernel launches one replay makes."""
@@ -253,7 +259,7 @@ class _Captured:
         self.inputs = inputs
         self.graph = torch.cuda.CUDAGraph()
         self.out: torch.Tensor = None
-        self.launches = (0, 0)  # (detect, kabsch) a replay
+        self.launches = (0,) * len(_COUNTED)  # a replay's, as _COUNTED
 
 
 class StepGraph:
@@ -267,8 +273,7 @@ class StepGraph:
     every later one copies its inputs into the static buffer (one
     host->device copy from pinned memory) and replays. A capture that fails
     raises: there is no eager fallback on the card. A replay adds the
-    detect and Kabsch launches its capture recorded to those kernels'
-    launch counts."""
+    kernel launches its capture recorded to those kernels' launch counts."""
 
     def __init__(self, store: NodeStore, graph: GraphState, generator: torch.Generator):
         self.store, self.graph, self.generator = store, graph, generator
@@ -303,8 +308,8 @@ class StepGraph:
         cap.graph.replay()
         self.replay_s += time.perf_counter() - t0
         self.replays += 1
-        detect.LAUNCHES += cap.launches[0]
-        alignment.LAUNCHES += cap.launches[1]
+        for mod, n_launches in zip(_COUNTED, cap.launches):
+            mod.LAUNCHES += n_launches
         return cap.out.clone()
 
     def _capture(self, key, host_flat, n, L, B, cfg) -> _Captured:
@@ -312,14 +317,15 @@ class StepGraph:
         flat = torch.empty(host_flat.shape, dtype=torch.uint8, device=dev)
         cap = _Captured(flat, group_views(flat, n, L, B))
         cap.graph.register_generator_state(self.generator)
-        counts = (detect.LAUNCHES, alignment.LAUNCHES)
+        counts = [mod.LAUNCHES for mod in _COUNTED]
         try:
             with torch.cuda.graph(cap.graph):
                 cap.out = slam_stepN(self.store, self.graph, cap.inputs, self.generator, **cfg)
         finally:
             # capturing records the kernels without launching them
-            cap.launches = (detect.LAUNCHES - counts[0], alignment.LAUNCHES - counts[1])
-            detect.LAUNCHES, alignment.LAUNCHES = counts
+            cap.launches = tuple(mod.LAUNCHES - c for mod, c in zip(_COUNTED, counts))
+            for mod, c in zip(_COUNTED, counts):
+                mod.LAUNCHES = c
         self._graphs[key] = cap
         self.captures += 1
         return cap

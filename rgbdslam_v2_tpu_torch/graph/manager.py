@@ -673,13 +673,14 @@ class GraphManager:
             return float("nan")
         finally:
             self.nodes_since_optimize = 0
-            # an online optimize leaves the newest 2 summaries pending, and a
-            # pipelined drain may leave staged ones unread: their edges were
-            # not optimized, so the watermark stops at the oldest of them
-            # (else those nodes would stay fixed in every later inaffected
-            # optimize; the JAX package counts the pending ones only)
-            unread = [e[0] for e in self._pending] + [e[0] for b in self._staged for e in b[0]]
-            self._nodes_opt_watermark = min(unread) if unread else self.n_nodes
+            # the reference's rule (rgbdslam_v2_tpu/graph/manager.py, the end
+            # of GraphManager.optimize): the watermark stops at the oldest
+            # still-pending node. Batches a pipelined drain left staged and
+            # unread are not counted, so their nodes stay fixed in later
+            # inaffected optimizes; kept for parity, and a fix belongs in
+            # both packages at once (ROADMAP F10)
+            pending = [e[0] for e in self._pending]
+            self._nodes_opt_watermark = min(pending) if pending else self.n_nodes
 
     def _add_const_position_edge(self, i: int, j: int) -> None:
         if self.n_edges >= self.e_cap:

@@ -8,16 +8,29 @@ B where the JAX version is vmapped.
 Hypothesis sampling draws Gumbel noise from a ``torch.Generator``; it cannot
 reproduce ``jax.random``'s draws, so ``ransac_register`` takes an optional
 ``sample_idx`` that a parity test fills with the JAX indices.
+
+The refinement after the hypothesis sweep (masked Kabsch refits, each gated
+by the full-covariance Mahalanobis test, then the final score) is
+``ransac_refine``: CPU tensors go to its plain version
+``ransac_refine_plain``, CUDA tensors to the hand-written kernel
+``ransac_refine_f32`` in ``csrc/kabsch.cu`` (one launch a call for every
+candidate and refit, no host sync). ``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import backend
 from ..core import se3
-from ..core.alignment import weighted_kabsch, weighted_kabsch_quat
+from ..core.alignment import weighted_kabsch_plain, weighted_kabsch_quat
 from ..core.noise import point_covariance_diag
+
+LAUNCHES = 0  # ransac_refine kernel launches (incremented only where the kernel launches)
+REFINE_MAX_MATCHES = 16384  # csrc/kabsch.cu: 256 threads x 64 inlier bits a thread
+_fn = None
 
 
 class RegistrationResult(NamedTuple):
@@ -135,13 +148,33 @@ def ransac_register(
     quality = n_h.float() - err_h / (err_h + 1.0)
     best = torch.argmax(quality, dim=-1)  # (B,)
     bsel = torch.arange(B, device=dev)
-    T = T_h[bsel, best]
-    inliers = inl[bsel, best]
+    T, inliers, n_inl, rmse = ransac_refine(
+        src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T_h[bsel, best],
+        inl[bsel, best], refine_iterations, max_mahal_sq)
+    return RegistrationResult(transform=T, inliers=inliers, n_inliers=n_inl,
+                              rmse=rmse, success=n_inl >= min_inliers)
 
-    # masked refits with the exact SVD fit and the full covariance model
+
+def ransac_refine(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
+                  refine_iterations: int, max_mahal_sq: float):
+    """The refits and final score of ransac_register: (T (B, 4, 4), inliers
+    (B, M) bool, n_inliers (B,) int32, rmse (B,)). CPU tensors -> the plain
+    version; CUDA -> the kernel."""
+    args = (src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
+            refine_iterations, max_mahal_sq)
+    if src_xyz.is_cuda:
+        return ransac_refine_cuda(*args)
+    return ransac_refine_plain(*args)
+
+
+def ransac_refine_plain(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
+                        refine_iterations: int, max_mahal_sq: float):
+    """The plain version: masked refits with the exact SVD fit
+    (torch.linalg.svd + det) and the full covariance model, each kept only
+    where it leaves at least 3 inliers, then the final gate."""
     for _ in range(refine_iterations):
         w = torch.where(inliers, w_depth, 0.0)
-        T2 = weighted_kabsch(src_xyz, dst_xyz, w)
+        T2 = weighted_kabsch_plain(src_xyz, dst_xyz, w)
         m2 = mahalanobis_sq(T2, src_xyz, dst_xyz, src_cov, dst_cov)
         inl2 = match_valid & (m2 < max_mahal_sq)
         better = inl2.sum(dim=-1) >= 3
@@ -152,5 +185,57 @@ def ransac_register(
     inliers = match_valid & (m2 < max_mahal_sq)
     n_inl = inliers.sum(dim=-1, dtype=torch.int32)
     rmse = torch.sqrt(torch.where(inliers, m2, 0.0).sum(dim=-1) / torch.clamp(n_inl, min=1))
-    return RegistrationResult(transform=T, inliers=inliers, n_inliers=n_inl,
-                              rmse=rmse, success=n_inl >= min_inliers)
+    return T, inliers, n_inl, rmse
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = backend.load_kernel_library("kabsch").ransac_refine_f32
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def ransac_refine_cuda(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
+                       refine_iterations: int, max_mahal_sq: float):
+    """The kernel: one launch for every candidate and refit."""
+    global LAUNCHES
+    pts = (src_xyz, dst_xyz, src_cov, dst_cov)
+    if not src_xyz.is_cuda or any(x.device != src_xyz.device for x in
+                                  (*pts, w_depth, match_valid, T, inliers)):
+        raise ValueError("ransac_refine_cuda needs CUDA tensors on one device")
+    if (any(x.dtype != torch.float32 for x in (*pts, w_depth, T))
+            or match_valid.dtype != torch.bool or inliers.dtype != torch.bool):
+        raise ValueError("ransac_refine_cuda takes float32 points, covariances, weights and "
+                         "transforms and bool masks")
+    B, M = match_valid.shape
+    if (any(x.shape != (B, M, 3) for x in pts) or w_depth.shape != (B, M)
+            or inliers.shape != (B, M) or T.shape != (B, 4, 4)):
+        raise ValueError(f"shapes: expected (B, M, 3) points and covariances, (B, M) weights "
+                         f"and masks, (B, 4, 4) T for B={B}, M={M}")
+    if M > REFINE_MAX_MATCHES or refine_iterations < 0:
+        raise ValueError(f"ransac_refine_cuda takes at most {REFINE_MAX_MATCHES} matches and "
+                         f"refine_iterations >= 0 (got {M}, {refine_iterations})")
+    dev = src_xyz.device
+    T_out = torch.empty((B, 4, 4), dtype=torch.float32, device=dev)
+    inl_out = torch.empty((B, M), dtype=torch.bool, device=dev)
+    n_out = torch.empty((B,), dtype=torch.int32, device=dev)
+    rmse = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return T_out, inl_out, n_out, rmse
+    ins = [x.contiguous() for x in (src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid,
+                                    T, inliers)]
+    status = _kernel_fn()(*(x.data_ptr() for x in ins), T_out.data_ptr(), inl_out.data_ptr(),
+                          n_out.data_ptr(), rmse.data_ptr(), B, M, int(refine_iterations),
+                          float(max_mahal_sq), torch.cuda.current_stream(dev).cuda_stream)
+    backend.check_launch(status, "ransac_refine_f32")
+    LAUNCHES += 1
+    return T_out, inl_out, n_out, rmse

@@ -146,3 +146,33 @@ def test_watermark_after_online_and_blocking_optimize(sequence):
     jm.optimize(blocking=True)
     assert tm._nodes_opt_watermark == jm._nodes_opt_watermark == len(rgbs)
     assert tm._pending == [] and jm._pending == []
+
+
+def test_watermark_ignores_staged_drains_as_jax_does(sequence, monkeypatch):
+    """Pipelined drains whose staged copies never land (the port's
+    `_landed` and the JAX arrays' `is_ready` both report them in flight),
+    an online optimize every frame: the watermark counts the pending nodes
+    only, as the JAX package's does, so nodes staged but unread lie below
+    it. Both packages, frame by frame (ROADMAP F10)."""
+    poses, rgbs, depths = sequence
+    params = dict(PARAMS, keep_all_nodes=True, optimizer_skip_step=1, ransac_iterations=64,
+                  min_matches=12, tpu_drain_interval=4, tpu_drain_pipelined=True)
+    monkeypatch.setattr(tmanager.GraphManager, "_landed", staticmethod(lambda event: False))
+    monkeypatch.setattr(type(jnp.zeros(1)), "is_ready", lambda self: False)
+    jm = jmanager.GraphManager(JIntrinsics(*CAM), JParams(dict(params)))
+    tm = tmanager.GraphManager(Intrinsics(*CAM), ParameterServer(dict(params)), device="cpu")
+    marks, staged_below = [], 0
+    for i in range(len(rgbs)):
+        gt = poses[0] if i == 0 else None
+        jm.add_frame(rgbs[i], depths[i], i / 30.0, gt)
+        tm.add_frame(rgbs[i], depths[i], i / 30.0, gt)
+        marks.append((tm._nodes_opt_watermark, jm._nodes_opt_watermark))
+        staged = [e[0] for b in tm._staged for e in b[0]]
+        assert staged == [e[0] for b in jm._staged_drains for e in b[0]]
+        staged_below += bool(staged) and min(staged) < tm._nodes_opt_watermark
+    assert [t for t, _ in marks] == [j for _, j in marks]
+    assert staged_below > 0  # a rule counting staged nodes would stop lower
+    tm.optimize(blocking=True)
+    jm.optimize(blocking=True)
+    assert tm._nodes_opt_watermark == jm._nodes_opt_watermark == len(rgbs)
+    assert not tm._staged and not jm._staged_drains

@@ -11,15 +11,24 @@ The Kabsch kernel (a double-precision 3x3 SVD in registers) agrees with
 the plain torch.linalg.svd + det version, run in float64 on the same
 inputs, within 1e-5 on R and 1e-5 m on t for well-conditioned problems,
 gives R = I for all-zero weights, and a proper rotation for collinear
-points."""
+points. The RANSAC refine kernel (refits, gates and final score in one
+launch) agrees with its plain version run in float64 on the same inputs
+(chip_smoke.refine_against_plain: T within 1e-5, inlier masks equal except
+at matches whose float64 m2 lies within 1e-4 x max_mahal_sq of the
+threshold, n_inliers off by at most their count, rmse within 1e-5
+relative) at B in {1, 8, 64} and M in {1, 37, 300, 512}, and with the
+matches read from global memory (M = 2000, too many to stage); keeps T
+where no match is valid, equals the plain version for zero weights, gives
+a proper rotation for collinear inliers, replays in a CUDA graph as it
+runs eagerly, and makes no synchronizing call."""
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import kabsch_problems
+from chip_smoke import kabsch_problems, refine_against_plain, refine_problems
 from rgbdslam_v2_tpu_torch.core import alignment
 from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor
-from rgbdslam_v2_tpu_torch.ops import detect, fast
+from rgbdslam_v2_tpu_torch.ops import detect, fast, registration
 from rgbdslam_v2_tpu_torch.ops.image import resize_bilinear
 
 
@@ -146,3 +155,89 @@ def test_cuda_kabsch_degenerate_cases():
     assert torch.isfinite(T).all()
     assert float((R @ R.T - torch.eye(3, device=dev, dtype=torch.float64)).abs().max()) < 1e-5
     assert abs(float(torch.linalg.det(R)) - 1.0) < 1e-5
+
+
+def _refine_inputs(B, M, seed=0):
+    dev = _cuda()
+    return [torch.from_numpy(a).to(dev) for a in refine_problems(np.random.default_rng(seed), B, M)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 37, 300, 512, 2000])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_cuda_refine_matches_plain(B, M):
+    args = _refine_inputs(B, M, seed=B * 10000 + M)
+    before = registration.LAUNCHES
+    r = refine_against_plain(args)
+    assert registration.LAUNCHES == before + 1
+    assert r["ok"], {k: v for k, v in r.items() if k not in ("got", "ref")}
+    T, inl, n, rmse = r["got"]
+    assert T.shape == (B, 4, 4) and inl.shape == (B, M) and n.dtype == torch.int32
+    assert torch.equal(inl.sum(-1, dtype=torch.int32), n)
+    assert bool(torch.isfinite(T).all()) and bool(torch.isfinite(rmse).all())
+
+
+@pytest.mark.cuda
+def test_cuda_refine_degenerate_cases():
+    dev = _cuda()
+    args = _refine_inputs(3, 300, seed=5)
+    args[5][0] = False  # no valid match
+    args[7][0] = False
+    args[2][1] = 0.0  # zero weights: every fit is the identity
+    line = torch.linspace(-1.0, 1.0, 300, device=dev)[:, None] * torch.tensor(
+        [0.3, -0.5, 0.8], device=dev) + torch.tensor([0.0, 0.0, 3.0], device=dev)
+    args[0][2], args[1][2] = line, line + torch.tensor([0.01, 0.0, 0.0], device=dev)
+    args[5][2] = args[7][2] = True  # collinear inliers: rank-1 cross-covariance
+    T_in = args[6].clone()
+    r = refine_against_plain(args)
+    T, inl, n, rmse = r["got"]
+    assert torch.equal(T[0], T_in[0]) and int(n[0]) == 0 and float(rmse[0]) == 0.0
+    assert not bool(inl[0].any())
+    assert float((T[1] - r["ref"][0][1]).abs().max()) <= 1e-5
+    assert torch.equal(inl[1], r["ref"][1][1]) and int(n[1]) == int(r["ref"][2][1])
+    R = T[2, :3, :3].double()
+    assert bool(torch.isfinite(T[2]).all())
+    assert float((R @ R.T - torch.eye(3, device=dev, dtype=torch.float64)).abs().max()) < 1e-5
+    assert abs(float(torch.linalg.det(R)) - 1.0) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_refine_graph_replay_equals_eager():
+    args = _refine_inputs(8, 300, seed=9)
+    eager = registration.ransac_refine(*args, 4, 9.0)
+    static = [a.clone() for a in args]
+    registration.ransac_refine(*static, 4, 9.0)  # load the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = registration.LAUNCHES
+    with torch.cuda.graph(graph):
+        out = registration.ransac_refine(*static, 4, 9.0)
+    assert registration.LAUNCHES == before + 1  # counted when captured, not launched
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
+    # a replay reads the static inputs as they are now
+    other = _refine_inputs(8, 300, seed=10)
+    for s, o in zip(static, other):
+        s.copy_(o)
+    graph.replay()
+    ref = registration.ransac_refine(*other, 4, 9.0)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_refine_makes_no_sync():
+    args = _refine_inputs(8, 300, seed=11)
+    registration.ransac_refine(*args, 4, 9.0)  # first call loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = registration.ransac_refine(*args, 4, 9.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[0]).all())

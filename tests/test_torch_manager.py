@@ -19,7 +19,7 @@ from rgbdslam_v2_tpu_torch.config import ParameterServer, default_params
 from rgbdslam_v2_tpu_torch.core import alignment
 from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT, Intrinsics
 from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
-from rgbdslam_v2_tpu_torch.ops import detect
+from rgbdslam_v2_tpu_torch.ops import detect, registration
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
 torch.set_num_threads(1)
@@ -139,18 +139,20 @@ def test_keep_all_step_reads_the_card_never():
     after the first two frames (torch's and the port's one-time setup) no
     frame makes a synchronizing call, the pipelined drains and the online
     inaffected optimizes included. Every frame after the first launches the
-    Kabsch kernel refine_iterations times and the detect kernel once."""
+    RANSAC refine kernel once (the Kabsch kernel never) and every frame the
+    detect kernel once."""
     poses, rgbs, depths = _render(40)
     pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
         {**BENCH, "tpu_frames_per_step": 1, "tpu_encode_ahead": False}))
     detect.reset_launches()
     alignment.reset_launches()
+    registration.reset_launches()
     per_frame = [_sync_sites(lambda: pipe.process_frame(
         rgbs[i], depths[i], i / 30.0, gt_pose=poses[0] if i == 0 else None))
         for i in range(len(rgbs))]
     assert all(not sites for sites in per_frame[2:]), per_frame
     assert detect.LAUNCHES == len(rgbs)
-    assert alignment.LAUNCHES == pipe.params["refine_iterations"] * (len(rgbs) - 1)
+    assert registration.LAUNCHES == len(rgbs) - 1 and alignment.LAUNCHES == 0
     assert pipe.manager.statistics()["nodes"] == len(rgbs)
 
 
@@ -183,12 +185,14 @@ def test_grouped_replay_equals_eager_steps():
         pipe._process_group = watched
         detect.reset_launches()
         alignment.reset_launches()
+        registration.reset_launches()
         pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
         runs[n] = (pipe.manager.poses(), pipe.manager.statistics(), detect.LAUNCHES,
-                   alignment.LAUNCHES, pipe.manager.step_graph, replay_sites)
+                   (registration.LAUNCHES, alignment.LAUNCHES), pipe.manager.step_graph,
+                   replay_sites)
     (p1, s1, d1, k1, _, _), (p4, s4, d4, k4, sg, sites) = runs[1], runs[4]
     assert (sg.captures, sg.eager_groups, sg.replays) == (1, 1, 5)
     assert len(sites) == 4 and all(not s for s in sites), sites
-    assert d4 == d1 == 25 and k4 == k1 == 4 * 24
+    assert d4 == d1 == 25 and k4 == k1 == (24, 0)  # (refine, Kabsch) launches
     assert s4 == s1
     np.testing.assert_allclose(p4, p1, rtol=0, atol=1e-6)
