@@ -9,13 +9,15 @@ points run on the CUDA card unless the caller passes device="cpu".
   ops/       image ops, FAST/Harris detection (hand-written CUDA kernel in
              csrc/), ORB description, matching, RANSAC, EMM
   models/    OrbExtractor and the Keypoints container
+  ops/icp    dense GICP / point-to-plane ICP (torch ops)
   graph/     ingest wire, node store, candidate compare, per-frame step,
              GraphManager (keep-all fast path and host-decision path),
-             host bookkeeping and decisions
+             the ICP rescues, host bookkeeping and decisions
   optim/     LM pose-graph optimization (dense and PCG solvers)
   pipeline/  SlamPipeline and the 5-level evaluation protocol
-  eval/      ATE
-  io/        TUM trajectory I/O, synthetic world renderer
+  eval/      ATE, RPE, Wilcoxon comparison
+  io/        TUM trajectory I/O, the synthetic worlds' renderer (hard
+             sequences included), the native host wire encoder
   config/    parameter server (same names as the JAX package)
 """
 

@@ -8,12 +8,17 @@ precision) plus the TPU-backend gate in ``models/orb.py``. Here:
   falls back silently.
 * :func:`set_precision` turns TF32 off for matmuls and cuDNN convolutions,
   matching the reference's "highest" float32 precision.
-* :func:`load_kernel_library` is the one place that compiles a ``csrc/*.cu``
-  source with ``nvcc`` into a plain-C shared library and loads it with
-  ``ctypes``. The build is keyed by a hash of the source, lands in the
-  git-ignored ``_build/`` directory beside this file, and a failed build
-  raises with the compiler's output. :func:`build_kernel_libraries` builds
-  several sources at once, one nvcc process each.
+* :func:`load_kernel_library` is the one place that compiles a native
+  source into a plain-C shared library and loads it with ``ctypes``: a
+  ``csrc/*.cu`` kernel source with ``nvcc``, or the host wire encoder
+  ``native/compact_ingest.cpp`` (``HOST_SOURCES``) with ``g++ -O3
+  -ffp-contract=off`` (``nvcc -x c++`` where there is no ``g++``). The
+  build is keyed by a hash of the source, the compiler and its flags,
+  lands in the git-ignored ``_build/`` directory beside this file (a
+  temporary file renamed into place, so concurrent builds are safe), and a
+  failed build raises with the compiler's output.
+  :func:`build_kernel_libraries` builds several sources at once, one
+  compiler process each.
 """
 from __future__ import annotations
 
@@ -39,6 +44,11 @@ NVCC_FLAGS = [
 # float32 operation order and, without FMA contraction, rounds identically;
 # kabsch.cu computes in double against a float64 reference and contracts
 SOURCE_FLAGS = {"detect_corners": ["--fmad=false"]}
+# host sources outside csrc/, built for the CPU: the wire encoder shared
+# with the JAX package (compiled alone, unedited; its chroma must round as
+# numpy's float32 expression does, so no FMA contraction)
+HOST_SOURCES = {"compact_ingest": _PKG_DIR.parent / "native" / "compact_ingest.cpp"}
+HOST_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -97,34 +107,64 @@ def nvcc_flags(name: str) -> List[str]:
     return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
 
 
-def library_path(name: str) -> Path:
-    """Build location of csrc/<name>.cu, keyed by the source's hash."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
+def host_compiler() -> List[str]:
+    """The command prefix that builds a host source: g++ where there is
+    one, else nvcc compiling it as C++ with the same host flags."""
+    gxx = shutil.which("g++")
+    if gxx:
+        return [gxx, *HOST_FLAGS]
+    return [_nvcc(), "-x", "c++", "-O3", "-shared", "-Xcompiler", "-fPIC,-ffp-contract=off"]
+
+
+def source_path(name: str) -> Path:
+    return HOST_SOURCES.get(name, CSRC_DIR / f"{name}.cu")
+
+
+def _compile_command(name: str) -> List[str]:
+    """The compiler and flags of one source, without its input and output."""
+    return host_compiler() if name in HOST_SOURCES else [_nvcc(), *nvcc_flags(name)]
+
+
+def library_path(name: str, command: List[str] = None) -> Path:
+    """Build location of a source, keyed by its hash, the compiler's name
+    and the flags."""
+    command = command or _compile_command(name)
+    key = " ".join([Path(command[0]).name, *command[1:]])
+    digest = hashlib.sha256(source_path(name).read_bytes() + key.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build_kernel_libraries(names) -> List[Path]:
-    """Compile every csrc/<name>.cu whose hash-keyed library is missing,
-    one nvcc process a source, all started together; raise with the
+    """Compile every source whose hash-keyed library is missing, one
+    compiler process a source, all started together; raise with the
     compiler's output if any fails."""
-    outs = [library_path(name) for name in names]
-    jobs = []
-    for name, out in zip(names, outs):
+    outs, jobs = [], []
+    for name in names:
+        command = _compile_command(name)
+        out = library_path(name, command)
+        outs.append(out)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        jobs.append((name, out, tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp.so")
+        cmd = [*command, "-o", str(tmp), str(source_path(name))]
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+        except OSError as e:
+            for *_, running in jobs:
+                running.kill()
+                running.communicate()
+            raise RuntimeError(f"cannot start the compiler for {source_path(name).name}: "
+                               f"{' '.join(cmd)}: {e}") from e
+        jobs.append((name, out, tmp, cmd, proc))
     errors = []
     for name, out, tmp, cmd, proc in jobs:
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            errors.append(f"{Path(cmd[0]).name} failed building {source_path(name).name} "
+                          f"(exit {proc.returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}")
         else:
             os.replace(tmp, out)
     if errors:
@@ -133,12 +173,12 @@ def build_kernel_libraries(names) -> List[Path]:
 
 
 def build_kernel_library(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the hash-keyed library exists."""
+    """Compile one source unless its hash-keyed library exists."""
     return build_kernel_libraries([name])[0]
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Build (first use) and load csrc/<name>.cu; cached per process."""
+    """Build (first use) and load one source's library; cached per process."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

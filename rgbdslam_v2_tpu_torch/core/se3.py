@@ -115,7 +115,9 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(*batch, 3, 3)
     t = t.expand(*batch, 3)
     out = F.pad(torch.cat([R, t[..., None]], dim=-1), (0, 0, 0, 1))
-    out[..., 3, 3] = 1.0
+    # fill_, not item assignment: assigning a Python number to the 0-dim
+    # view of a single pose copies it from the host, which waits for the card
+    out[..., 3, 3].fill_(1.0)
     return out
 
 

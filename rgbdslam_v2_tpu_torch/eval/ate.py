@@ -1,12 +1,13 @@
-"""Absolute trajectory error (ATE) after Horn alignment.
+"""Trajectory errors: ATE after Horn alignment, and RPE over a frame delta.
 
-Port of ``rgbdslam_v2_tpu/eval/ate.py::evaluate_ate`` (and its
-``TrajectoryError`` statistics).
+Port of ``rgbdslam_v2_tpu/eval/ate.py`` (``evaluate_ate``, ``evaluate_rpe``
+and their ``TrajectoryError`` statistics), float32 on the CPU like the JAX
+version.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,3 +52,17 @@ def evaluate_ate(est_stamps: Sequence[float], est_xyz, gt_stamps: Sequence[float
     T, _ = alignment.horn_align_trajectories(est, gt)
     aligned = se3.apply(T, est).numpy()
     return _stats(np.linalg.norm(aligned - gt.numpy(), axis=-1))
+
+
+def evaluate_rpe(est_poses, gt_poses, delta: int = 1) -> Tuple[TrajectoryError, TrajectoryError]:
+    """Relative pose error over a frame delta on index-aligned (N, 4, 4)
+    pose arrays: (translational [m], rotational [rad]) statistics."""
+    est = torch.as_tensor(np.asarray(est_poses), dtype=torch.float32)
+    gt = torch.as_tensor(np.asarray(gt_poses), dtype=torch.float32)
+    rel_est = se3.inv(est[:-delta]) @ est[delta:]
+    rel_gt = se3.inv(gt[:-delta]) @ gt[delta:]
+    err = se3.inv(rel_gt) @ rel_est
+    terr = torch.linalg.norm(err[:, :3, 3], dim=-1)
+    tr = err[:, 0, 0] + err[:, 1, 1] + err[:, 2, 2]
+    rerr = torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+    return _stats(terr.numpy()), _stats(rerr.numpy())

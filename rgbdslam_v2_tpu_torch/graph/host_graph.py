@@ -8,10 +8,12 @@ of edge metadata, and the host-decision path of ``add_frame``: the motion
 gates (``_motion_magnitude``, ``_motion_small``, ``_motion_sane``),
 ``MatchDecision`` and the accept/reject loop, the ``max_connections`` cut,
 the redundancy drop, edge building, keyframes, the ``clear_non_keyframes``
-queue, ``delete_last_frame``'s bookkeeping and the subgraph selection of
-``_optimize_inaffected``. The decisions are functions on numpy arrays, so a
-test can feed them fixed comparison results. ``graph/manager.py`` holds the
-device half.
+queue, ``delete_last_frame``'s bookkeeping, the subgraph selection of
+``_optimize_inaffected``, and the edge bookkeeping of the ICP rescues
+(the fallback edges a drain hands to ``_dispatch_retro_rescue``,
+``_consume_rescues``' retyping, the ICP edges of ``add_frame``). The
+decisions are functions on numpy arrays, so a test can feed them fixed
+comparison results. ``graph/manager.py`` holds the device half.
 """
 from __future__ import annotations
 
@@ -107,11 +109,13 @@ def is_redundant(padded: List[int], accepted: List[int], cmp, pred_id: int, dt_p
 
 
 def build_edges(padded: List[int], accepted: List[int], cmp, pred_id: int, new_id: int,
-                geodesic: Set[int]):
-    """Visual edges of the accepted matches, typed sequential (the
-    predecessor or inside its geodesic neighbourhood) or loop, and the pose
-    anchor: the best match by inliers, else the predecessor at identity.
-    Returns (base_id, base_T_new, [(i, j, meas, info6x6, etype)])."""
+                geodesic: Set[int], icp: Optional[Dict[int, tuple]] = None):
+    """Visual edges of the accepted matches, then the ICP-rescued edges of
+    `icp` ({cand_id: (T, info6x6, n_pairs, rmse)}, use_icp), each typed
+    sequential (the predecessor or inside its geodesic neighbourhood) or
+    loop, and the pose anchor: the best match by inliers, else the
+    predecessor's ICP edge, else the predecessor at identity. Returns
+    (base_id, base_T_new, [(i, j, meas, info6x6, etype)])."""
     edges = []
     base_id, base_T_new = pred_id, np.eye(4, dtype=np.float32)
     if accepted:
@@ -124,6 +128,10 @@ def build_edges(padded: List[int], accepted: List[int], cmp, pred_id: int, new_i
             edges.append((cid, new_id, np.asarray(cmp.transform[b], np.float32),
                           np.eye(6, dtype=np.float32) * info_scale,
                           edge_type(cid, pred_id, geodesic)))
+    for cid, (T, info, _n, _rmse) in (icp or {}).items():
+        edges.append((cid, new_id, T, info, edge_type(cid, pred_id, geodesic)))
+    if not accepted and icp and pred_id in icp:
+        base_id, base_T_new = pred_id, icp[pred_id][0]
     return base_id, base_T_new, edges
 
 
@@ -288,8 +296,12 @@ class HostGraph:
         return e
 
     # ------------------------------------------------------------------
-    def apply_summary(self, new_id: int, padded: List[int], edge_start: int, s) -> None:
-        """Record one drained frame: edge types, adjacency, keyframes."""
+    def apply_summary(self, new_id: int, padded: List[int], edge_start: int,
+                      s) -> Optional[Tuple[int, int]]:
+        """Record one drained frame: edge types, adjacency, keyframes.
+        Returns (new_id, fallback edge slot) when the frame fell back to a
+        constant-position edge (the retroactive ICP rescue's work), else
+        None."""
         pred_id = new_id - 1
         B = len(padded)
         accepted_ids = []
@@ -320,6 +332,13 @@ class HostGraph:
             self.adjacency.setdefault(pred_id, set()).add(new_id)
             self.adjacency.setdefault(new_id, set()).add(pred_id)
         self.add_keyframe(accepted_ids, pred_id)
+        return (new_id, fb_slot) if s.fallback_used else None
+
+    def apply_rescue(self, slot: int) -> None:
+        """A retroactive ICP rescue replaced the constant-position edge in
+        `slot`: it counts as a sequential edge now."""
+        self.edge_types[slot] = EDGE_SEQUENTIAL
+        self.n_seq_edges += 1
 
     def add_keyframe(self, accepted_ids: List[int], pred_id: int) -> None:
         """addKeyframe (graph_manager.cpp:784-809): when no accepted edge

@@ -2,32 +2,53 @@
 
 Port of the yc12 and ydct parts of ``rgbdslam_v2_tpu/graph/manager.py``:
 
-* host side, numpy: ``compact_frame`` (its numpy yc12 branch with gray_bits
-  8, and its ydct branch), ``_d10_lut``/``_pack10``, ``_d12_lut``/
-  ``_pack12``, ``_chroma_mult``;
+* host side: ``compact_frame`` (its yc12 branch with gray_bits 8 and its
+  ydct branch), through the native C encoder (``io/native_compact.py``)
+  as the JAX package does, with the numpy encoder as the plain version and
+  the fallback for layouts the C code refuses: ``compact_frame_numpy``,
+  ``_d10_lut``/``_pack10``, ``_d12_lut``/``_pack12``, ``_chroma_mult``;
 * device side, torch: ``_unpack_yc12`` (8-bit and DCT luma),
   ``_decode_color_small`` and ``_finish_yc12`` (depth masking,
   feature-depth plane, extraction).
 
 Wire layout: [luma | sqrt-coded depth at stride s (10 or 12 bits) | Cb | Cr
 at stride cm*s]. The luma is H*W u8 bytes (yc12) or the fixed-rate block-DCT
-planes of ``ops/dct_wire.py`` (ydct, chosen by passing its ``DctSpec``). The
-JAX package encodes ydct with a native C encoder where it can; the port uses
-the numpy encoder, whose bytes are the JAX package's numpy bytes. The JAX
-uint32 shifts are int32 ops here.
+planes of ``ops/dct_wire.py`` (ydct, chosen by passing its ``DctSpec``).
+Native yc12 bytes equal the numpy bytes; native ydct codes may differ from
+the numpy codes by 1 at ~2e-3 of positions, mostly DC codes on an exact .5
+tie (``io/native_compact.py``).
+``ENCODES`` counts host encodes by route. The JAX uint32 shifts are int32
+ops here.
 """
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..io import native_compact
 from ..models.orb import feature_depth_map
 from ..ops.dct_wire import DctSpec, check_shape, dct_luma_len, decode_luma_dct_dev, encode_luma_dct
 
 DEPTH_SCALE = 5000.0  # TUM PNG quantization: depth_meters = png_u16 / 5000
+# host encodes by route since the last reset_encodes(): the native C
+# encoder, or numpy (layouts the C code refuses)
+ENCODES = {"native": 0, "numpy": 0}
+_encodes_lock = threading.Lock()
+
+
+def reset_encodes() -> None:
+    with _encodes_lock:
+        for k in ENCODES:
+            ENCODES[k] = 0
+
+
+def _count(route: str) -> None:
+    with _encodes_lock:
+        ENCODES[route] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,7 +97,28 @@ def compact_frame(rgb, depth, stride: int, depth_bits: int = 12,
     """Host encoder: rgb (H, W, 3) u8 or (H, W) gray, depth (H, W) u16
     counts or float meters -> one packed u8 buffer. yc12 with 8-bit luma,
     or ydct when `dct` names the luma's rate/quality point (H and W
-    divisible by 8, else ValueError)."""
+    divisible by 8, else ValueError). The native C encoder where it takes
+    the layout, else compact_frame_numpy; counted in ENCODES."""
+    if depth_bits not in (10, 12):
+        raise NotImplementedError(f"tpu_depth_bits={depth_bits} (10 or 12)")
+    depth = np.asarray(depth)
+    H, W = depth.shape
+    if dct is not None:
+        check_shape(H, W)
+    cm = _chroma_mult(H, W, stride)
+    out = (native_compact.compact_yc12(rgb, depth, stride, depth_bits, cm) if dct is None
+           else native_compact.compact_ydct(rgb, depth, stride, depth_bits, cm, dct))
+    if out is not None:
+        _count("native")
+        return out
+    _count("numpy")
+    return compact_frame_numpy(rgb, depth, stride, depth_bits, dct)
+
+
+def compact_frame_numpy(rgb, depth, stride: int, depth_bits: int = 12,
+                        dct: Optional[DctSpec] = None) -> np.ndarray:
+    """The plain numpy encoder of compact_frame (the JAX package's numpy
+    bytes)."""
     if depth_bits not in (10, 12):
         raise NotImplementedError(f"tpu_depth_bits={depth_bits} (10 or 12)")
     rgb = np.asarray(rgb)

@@ -2,11 +2,13 @@
 
 Port of ``rgbdslam_v2_tpu/graph/manager.py``: ``__init__``, ``add_frame``
 (first frame, the keep-all fast path and the host-decision path without
-odometry and ICP), ``can_group`` and ``add_frame_group`` (N frames a step),
+odometry), ``can_group`` and ``add_frame_group`` (N frames a step),
 ``_commit``, ``_add_frame_device`` (``_add_frames_device``, shared with
 the groups), ``_drain_pending`` (blocking or pipelined),
 ``_consume_ready_staged``, ``_drain_batch``, ``_starvation_alert``,
-``_adapt_detector``, ``_apply_fixation``,
+``_adapt_detector``, ``_apply_fixation``, the ICP rescues of ``use_icp``
+(``_icp_rescue_batch``, ``_dispatch_retro_rescue``, ``_consume_rescues``;
+the device work is in ``graph/rescue.py``),
 ``_inaffected_kernel``, ``_optimize_inaffected``, ``optimize``,
 ``prune_edges_above``, ``toggle_mapping``, ``delete_last_frame``,
 ``clear_feature_information``, ``reset``, ``poses``, ``trajectory`` and
@@ -21,12 +23,27 @@ Two per-frame paths, chosen as in the JAX package:
   graph replay, ``device_step.StepGraph``). Its (4B+2,) summary reaches the
   host at a drain (every ``tpu_drain_interval`` frames, leaving the newest
   2 in flight): copied to the host as soon as the step is queued, or, with
-  ``tpu_drain_pipelined``, stacked at the drain, copied asynchronously
-  into pinned memory and read once its event has passed.
+  ``tpu_drain_pipelined``, stacked at the drain, copied into pinned
+  memory in one asynchronous copy and read one step call later
+  (``_landed``), waiting there for the copy's event, which has almost
+  always passed by then. The lag is fixed: the JAX package reads a staged
+  copy as soon as it reports landed, and on the card that made which
+  summaries a frame's candidate selection sees, and so the trajectory,
+  depend on how far the host ran ahead (ROADMAP F11). With ``use_icp`` a
+  drain that finds constant-position fallback edges queues their
+  retroactive GICP rescue on the card, behind the steps already queued;
+  its verdicts come back in an asynchronous copy read at the next drain,
+  which waits for them if the card is still on the rescue. Every wait for
+  a copy that has not landed is counted (``copy_waits``), and so is every
+  such wait outside a blocking drain that ends with no step left queued,
+  so that the card idles until the host queues more (``idle_waits``);
+  starved and blocking drains pull synchronously (``blocking_pulls``).
 * host-decision path (the default configuration, TRO 2014): extract,
   select candidates on the host, compare on the device, pull the result
   and the keypoint count in ONE device->host copy, decide on the host
   (motion gates, redundancy, keyframes), commit in place, optimize online.
+  With ``use_icp``, a frame with visually failed candidates rescues them
+  in one batched ICP call and pulls its result in one more copy.
 
 Configuration outside the port raises NotImplementedError.
 """
@@ -46,6 +63,7 @@ from ..models.orb import OrbExtractor
 from ..optim.pose_graph import (GraphState, edge_chi2, make_graph_state, optimize,
                                  resolve_solver)
 from ..ops import dct_wire
+from ..ops.emm import emm_pool_maps
 from .compare import CompareResult, CompareSummary, compare_to_candidates
 from .device_step import StepGraph, StepSummary, commit_node, group_views, pack_group, slam_stepN
 from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_edges,
@@ -53,6 +71,7 @@ from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_ed
                          is_redundant)
 from .ingest import compact_frame, prepare_and_extract
 from .node_store import NodeStore
+from .rescue import icp_rescue_body, retro_rescue
 
 logger = logging.getLogger("rgbdslam.graph")
 
@@ -86,7 +105,6 @@ def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
         "tpu_approx_select": p["tpu_approx_select"],
         "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] != "int8",
         "tpu_mesh_devices": p["tpu_mesh_devices"] > 1,
-        "use_icp": p["use_icp"],
         "global_loop_candidates": p["global_loop_candidates"] > 0,
         "g2o_transformation_refinement": p["g2o_transformation_refinement"] > 0,
         "use_robot_odom": p["use_robot_odom"] or p["use_robot_odom_only"],
@@ -174,9 +192,27 @@ class GraphManager:
         # (new_id, padded, edge_start, summary): a device tensor row while
         # the copy waits for a pipelined drain, else (host row, event)
         self._pending: list = []
-        self._staged: list = []  # [(pend, host stack, event)] copies in flight
+        # [(pend, host stack, event, step call it was staged in)] copies
+        # not read yet; step calls queued so far (the staged copies' clock)
+        self._staged: list = []
+        self._step_calls = 0
         self._contrast_ema: Optional[float] = None  # host luma contrast (starvation alert)
         self._starved_mode = False  # contrast collapsed: drains go synchronous
+        # use_icp on the fast path: (T, ok, node id) of the last retroactive
+        # rescue (the chain's seed across dispatches), and the dispatched
+        # rescues whose verdicts are not read yet: (new_ids, slots, host
+        # flags, event)
+        self._last_rescue = None
+        self._pending_rescues: list = []
+        self.n_icp_rescues = 0  # accepted ICP rescues, both paths
+        self.rescue_items = 0  # fallback edges sent to the retroactive rescue
+        # the fast path's waits for the card: blocking device->host copies
+        # of drains (starved mode, contrast alerts, unpipelined drains), and
+        # reads of an asynchronous copy that had not landed yet
+        self.blocking_pulls = 0
+        self.copy_waits = 0
+        self.idle_waits = 0
+        self._step_done = None  # event after the newest queued step (CUDA)
         self.step_graph = (StepGraph(self.store, self.graph, self.generator)
                            if self.device.type == "cuda" else None)
 
@@ -311,9 +347,19 @@ class GraphManager:
             return self._localize(padded, accepted, cmp, timestamp)
         if is_redundant(padded, accepted, cmp, pred_id, dt_pred, p):
             return False
+        icp = {}  # cand_id -> (T, info6x6, n_pairs, rmse)
+        if p["use_icp"]:
+            accepted_ids = {padded[b] for b in accepted}
+            failed = [d.cand_id for d in decisions
+                      if not d.accepted and d.cand_id not in accepted_ids]
+            if failed:
+                icp = self._icp_rescue_batch(depth_small, failed, padded, cmp)
+                for cid, (_T, _info, n_pairs, rmse) in icp.items():
+                    decisions.append(MatchDecision(cand_id=cid, accepted=True, reason="icp",
+                                                   n_inliers=n_pairs, rmse=rmse))
         base_id, base_T_new, edges = build_edges(
             padded, accepted, cmp, pred_id, new_id,
-            self.host.geodesic_set(pred_id, p["geodesic_depth"]))
+            self.host.geodesic_set(pred_id, p["geodesic_depth"]), icp)
         if not edges:
             if p["keep_all_nodes"] or (p["keep_good_nodes"]
                                        and cmp.n_valid_kp > p["min_keypoints"]):
@@ -330,6 +376,7 @@ class GraphManager:
                 return False
 
         self._commit(kp, depth_small, color_small, new_id, base_id, base_T_new, edges)
+        self.n_icp_rescues += len(icp)
         self.host.n_nodes += 1
         self.timestamps.append(timestamp)
         self.host.add_keyframe([padded[b] for b in accepted], pred_id)
@@ -342,6 +389,45 @@ class GraphManager:
             self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
                           pcg_iters=24)
         return True
+
+    def _icp_rescue_batch(self, depth_small, failed_ids: List[int], padded: List[int],
+                          cmp: CompareSummary) -> dict:
+        """use_icp on the host-decision path: ICP-rescue the visually failed
+        candidates (at most B, padded with the first) in ONE batched call,
+        seeded by their failed RANSAC transform where RANSAC was ok, else
+        identity, and read the results in ONE device->host copy. Returns
+        {cand_id: (T, info6x6, n_pairs, rmse)} for the converged results
+        that pass the EMM gate."""
+        p = self.params
+        B = self.cand_batch
+        ids = list(dict.fromkeys(failed_ids))[:B]
+        pad_ids = (ids + [ids[0]] * B)[:B]
+        eye4 = np.eye(4, dtype=np.float32)
+        seeds = []
+        for cid in pad_ids:
+            b = padded.index(cid) if cid in padded else 0
+            seeds.append(np.asarray(cmp.transform[b], np.float32) if cmp.ransac_ok[b] else eye4)
+        h, w = self.cam_small.height, self.cam_small.width
+        idx = self._to_device(np.asarray(pad_ids, np.int64))
+        r = icp_rescue_body(
+            self._to_device(np.stack(seeds)), depth_small, self.store.depth[idx].view(B, h, w),
+            self.cam_small, int(p["icp_max_iterations"]), p["emm_skip_step"],
+            p["sigma_depth"], str(p["icp_variant"]),
+            new_lohi=emm_pool_maps(depth_small).reshape(1, -1).expand(B, -1),
+            cand_lohi=self.store.emm_lohi[idx])
+        host = torch.cat([r.transform.reshape(-1), r.rmse, r.n_pairs.float(),
+                          r.converged.float(), r.emm_quality, r.emm_inlier_frac]).cpu().numpy()
+        T = host[: 16 * B].reshape(B, 4, 4)
+        rmse, n_pairs, conv, q, frac = host[16 * B :].reshape(5, B)
+        thr = p["observability_threshold"]
+        res = {}
+        for k, cid in enumerate(ids):
+            if conv[k] < 0.5 or (thr > 0 and not (q[k] > thr and frac[k] > 0.25)):
+                continue
+            info_scale = min(float(n_pairs[k]) / (float(rmse[k]) ** 2 + 4e-4), 1e6)
+            res[cid] = (T[k].copy(), np.eye(6, dtype=np.float32) * info_scale,
+                        int(n_pairs[k]), float(rmse[k]))
+        return res
 
     def _localize(self, padded, accepted, cmp, timestamp) -> bool:
         """localizationUpdate (graph_manager.cpp:660-679): the pose from the
@@ -439,6 +525,10 @@ class GraphManager:
             flat = host_flat.to(self.device, non_blocking=True)
             sums = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
                               self.generator, **self._step_cfg())
+        self._step_calls += 1
+        if cuda:
+            self._step_done = torch.cuda.Event()
+            self._step_done.record()
         if p["tpu_drain_pipelined"]:
             rows = list(sums)  # copied at the drain, stacked
         else:
@@ -474,9 +564,24 @@ class GraphManager:
         event.record()
         return host, event
 
-    @staticmethod
-    def _landed(event) -> bool:
-        return event is None or event.query()
+    def _landed(self, batch) -> bool:
+        """Whether a staged batch is read now: once a later step call has
+        been queued (a copy with no event, on the CPU, at once). The JAX
+        package asks the copy's `is_ready`; a fixed lag of one step call
+        keeps the drains pipelined and makes what the host reads, and so
+        the trajectory, independent of how far it runs ahead (F11)."""
+        return batch[2] is None or batch[3] < self._step_calls
+
+    def _wait(self, event, lagged: bool = False) -> None:
+        """Wait for a copy's event; a wait that finds it unfinished is
+        counted in copy_waits, and a lagged one (a read outside a blocking
+        drain) that ends with the newest queued step done in idle_waits."""
+        if event is None or event.query():
+            return
+        self.copy_waits += 1
+        event.synchronize()
+        if lagged and self._step_done is not None and self._step_done.query():
+            self.idle_waits += 1
 
     def _starvation_alert(self, packed) -> bool:
         """Host early warning of an abrupt scene-contrast collapse (lights
@@ -509,19 +614,22 @@ class GraphManager:
         """Stack pending summaries on the device, start ONE asynchronous
         copy into pinned memory and mark it with an event."""
         host, event = self._start_copy(torch.stack([e[3] for e in pend]))
-        return pend, host, event
+        return pend, host, event, self._step_calls
 
     def _drain_pending(self, keep_newest: int = 0) -> None:
         """Read pending step summaries into the host bookkeeping.
 
         keep_newest > 0 leaves the newest entries pending (their steps may
         still run). With tpu_drain_pipelined the drained entries are staged
-        (_stage) and read at a later drain or by _consume_ready_staged once
-        their copy has landed; at most 2 staged batches stay in flight, and
-        a blocking drain (keep_newest=0) reads them all. While the adaptive
-        ladder is engaged (threshold below its base), or in starved mode,
-        drains are synchronous: the ladder needs every drain's counts."""
-        batches = []  # (pend, host rows or None, event)
+        (_stage) and read one step call later (_landed), by
+        _consume_ready_staged; at most 2 staged batches stay unread (the
+        JAX package's bound for copies that never land), and a blocking
+        drain (keep_newest=0) reads them all. While the adaptive ladder is
+        engaged (threshold below its base), or in starved mode, drains are
+        synchronous: the ladder needs every drain's counts."""
+        lagged = keep_newest > 0
+        self._consume_rescues(lagged)
+        batches = []  # (pend, host rows or None, event[, staged at])
         if len(self._pending) > keep_newest:
             if keep_newest:
                 pend, self._pending = self._pending[:-keep_newest], self._pending[-keep_newest:]
@@ -531,7 +639,7 @@ class GraphManager:
             if self.params["tpu_drain_pipelined"] and uncopied and not self._starved_mode:
                 self._staged.append(self._stage(pend))
                 while self._staged and (not keep_newest or len(self._staged) > 2
-                                        or self._landed(self._staged[0][2])):
+                                        or self._landed(self._staged[0])):
                     batches.append(self._staged.pop(0))
             else:
                 # drains land in frame order: whatever is staged predates pend
@@ -541,24 +649,36 @@ class GraphManager:
         elif keep_newest == 0:
             batches += self._staged
             self._staged = []
+        fallbacks = []  # (new_id, fallback edge slot) for the ICP rescue
         for batch in batches:
-            self._drain_batch(*batch)
+            fallbacks += self._drain_batch(*batch[:3], lagged=lagged)
         while self._staged and self.extractor.fast_threshold < self._base_threshold:
-            self._drain_batch(*self._staged.pop(0))
+            # the ladder needs this drain's counts: read the batch just staged
+            fallbacks += self._drain_batch(*self._staged.pop(0)[:3])
+        if fallbacks and self.params["use_icp"]:
+            self._dispatch_retro_rescue(fallbacks)
 
     def _consume_ready_staged(self) -> None:
-        """Read staged batches whose copy has landed (event.query(): no
-        wait), so the ladder hears of starvation a frame or two after the
-        drain rather than a drain interval later."""
-        while self._staged and self._landed(self._staged[0][2]):
-            self._drain_batch(*self._staged.pop(0))
+        """Read the staged batches that _landed lets be read (JAX
+        `_consume_ready_staged`), once a step call after their drain, so the
+        ladder hears of starvation a group after the drain rather than a
+        drain interval later."""
+        fallbacks = []
+        while self._staged and self._landed(self._staged[0]):
+            fallbacks += self._drain_batch(*self._staged.pop(0)[:3], lagged=True)
+        if fallbacks and self.params["use_icp"]:
+            self._dispatch_retro_rescue(fallbacks)
 
-    def _drain_batch(self, pend, host, event) -> None:
+    def _drain_batch(self, pend, host, event, lagged: bool = False) -> list:
         """Apply one batch of summaries to the host bookkeeping, in frame
         order. host/event: a staged copy, or None for entries that carry
-        their own (a device row is read with one blocking copy)."""
+        their own (a device row is read with one blocking copy); lagged as
+        in _wait. Returns
+        the (new_id, fallback edge slot) of the frames that fell back to a
+        constant-position edge."""
         if host is None:
             on_device = [e[3] for e in pend if isinstance(e[3], torch.Tensor)]
+            self.blocking_pulls += bool(on_device)
             pulled = iter(torch.stack(on_device).cpu() if on_device else ())
             rows = []
             for e in pend:
@@ -566,17 +686,65 @@ class GraphManager:
                     rows.append(next(pulled))
                 else:
                     row, ev = e[3]
-                    if ev is not None:
-                        ev.synchronize()
+                    self._wait(ev, lagged)
                     rows.append(row)
         else:
-            if event is not None:
-                event.synchronize()
+            self._wait(event, lagged)
             rows = host
+        fallbacks = []
         for (new_id, padded, edge_start, _), row in zip(pend, rows):
             s = StepSummary.unpack(row.numpy(), len(padded))
-            self.host.apply_summary(new_id, padded, edge_start, s)
+            fb = self.host.apply_summary(new_id, padded, edge_start, s)
+            if fb is not None:
+                fallbacks.append(fb)
             self._adapt_detector(s.n_valid_kp)
+        return fallbacks
+
+    def _dispatch_retro_rescue(self, fallbacks) -> None:
+        """Queue the retroactive GICP rescue of a drain's constant-position
+        fallback edges [(new_id, slot)] on the device, in chunks of
+        tpu_drain_interval, each chained to the last rescue before it; the
+        verdict flags start their copy to pinned memory at once and are
+        read by _consume_rescues. No host read."""
+        p = self.params
+        cap = max(int(p["tpu_drain_interval"]), 1)
+        for k0 in range(0, len(fallbacks), cap):
+            chunk = fallbacks[k0 : k0 + cap]
+            prev = self._last_rescue or (
+                torch.eye(4, device=self.device), torch.zeros((), dtype=torch.bool,
+                                                              device=self.device), 0)
+            new_ids = [nid for nid, _ in chunk]
+            slots = [slot for _, slot in chunk]
+            flags, (last_T, last_ok) = retro_rescue(
+                self.graph, self.store.depth, self.store.emm_lohi, new_ids, slots, prev,
+                self.cam_small, int(p["icp_max_iterations"]), int(p["emm_skip_step"]),
+                float(p["sigma_depth"]), str(p["icp_variant"]),
+                float(p["observability_threshold"]))
+            if len(chunk) < cap:
+                # the JAX package pads a short chunk to cap rows, and a
+                # padding row ends the chain: so does a short chunk here
+                last_ok = torch.zeros_like(last_ok)
+            self._last_rescue = (last_T, last_ok, chunk[-1][0])
+            self.rescue_items += len(chunk)
+            self._pending_rescues.append((new_ids, slots, *self._start_copy(flags)))
+
+    def _consume_rescues(self, lagged: bool) -> None:
+        """Fold the verdicts of the rescues dispatched since the last drain
+        into the host mirrors (edge types, counters, reason="icp"
+        decisions), in dispatch order, waiting for their copies (_wait,
+        lagged as there): the card may still be on the rescue."""
+        pend, self._pending_rescues = self._pending_rescues, []
+        for new_ids, slots, host, event in pend:
+            self._wait(event, lagged)
+            flags = host.numpy()
+            for k, (nid, slot) in enumerate(zip(new_ids, slots)):
+                if flags[k, 0] > 0:
+                    self.host.apply_rescue(slot)
+                    self.n_icp_rescues += 1
+                    self.last_decisions.append(MatchDecision(
+                        cand_id=nid - 1, accepted=True, reason="icp",
+                        n_inliers=int(flags[k, 1]), rmse=float(flags[k, 2]),
+                        emm_quality=float(flags[k, 3])))
 
     def _adapt_detector(self, n_valid_kp: int) -> None:
         """Halve the FAST threshold on starvation, step back on saturation
@@ -764,4 +932,5 @@ class GraphManager:
             "loop_edges": h.n_loop_edges,
             "sequential_edges": h.n_seq_edges,
             "keyframes": len(h.keyframes),
+            "icp_rescues": self.n_icp_rescues,
         }

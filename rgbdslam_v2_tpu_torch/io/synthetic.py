@@ -1,11 +1,16 @@
 """Synthetic RGB-D world: a textured box room rendered by ray casting.
 
-Port of ``rgbdslam_v2_tpu/io/synthetic.py`` (``SyntheticWorld.create``,
-``orbit_trajectory``, the renderer and ``render_sequence`` with depth
-noise), rendering in torch on the given device. The textures and boxes come
-from the same numpy seed, so the world is identical to the JAX package's.
-Depth noise is drawn from a ``torch.Generator``: the same distribution as
-the JAX noise, different draws.
+Port of ``rgbdslam_v2_tpu/io/synthetic.py`` (``SyntheticWorld.create`` with
+``texture_contrast``, ``orbit_trajectory``, ``spin_trajectory``, the
+renderer, ``_dropout_mask`` and ``render_sequence`` with depth noise and
+depth dropout), rendering in torch on the given device: the CUDA card unless
+the caller names the CPU (``backend.resolve_device``). The textures and
+boxes come from the same numpy seed, so the world is identical to the JAX
+package's. Depth noise and the dropout holes' centres and radii are drawn
+from a ``torch.Generator``: the same distributions as the JAX draws,
+different values; :func:`dropout_mask` takes the draws as arguments, so a
+test can give it the JAX package's. :func:`dark_stretch` is the darkening
+of ``tools/hard_sequences.py``'s dark-stretch sequence.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import backend
 from ..core import se3
 from ..core.camera import TUM_DEFAULT, Intrinsics
 
@@ -50,9 +56,19 @@ class SyntheticWorld:
 
     @classmethod
     def create(cls, seed: int = 0, extent=(6.0, 5.0, 3.0), texture_size: int = 512,
-               cam: Intrinsics = TUM_DEFAULT, n_boxes: int = 5) -> "SyntheticWorld":
+               cam: Intrinsics = TUM_DEFAULT, n_boxes: int = 5,
+               texture_contrast=1.0) -> "SyntheticWorld":
+        """texture_contrast scales each face's texture about its mean: 1.0
+        is normal, a 6-tuple gives per-face values (faces x-,x+,y-,y+,z-,z+);
+        values near 0 make walls near-featureless (the low-texture world)."""
         rng = np.random.default_rng(seed)
         tex = np.stack([_make_face_texture(rng, texture_size) for _ in range(6)])
+        contrasts = ((float(texture_contrast),) * 6 if np.isscalar(texture_contrast)
+                     else tuple(float(c) for c in texture_contrast))
+        for f, c in enumerate(contrasts):
+            if c != 1.0:
+                mean = tex[f].mean(axis=(0, 1), keepdims=True)
+                tex[f] = np.clip(mean + (tex[f] - mean) * c, 0.0, 1.0)
         Lx, Ly, Lz = extent
         boxes = []
         for k in range(n_boxes):
@@ -73,7 +89,9 @@ class SyntheticWorld:
 
     def orbit_trajectory(self, n_frames: int, seed: int = 1, deg_per_frame: float = 2.0,
                          device=None) -> torch.Tensor:
-        """Ellipse orbit + bob + panning look-at: (N, 4, 4) world_T_cam."""
+        """Ellipse orbit + bob + panning look-at: (N, 4, 4) world_T_cam on
+        `device` (None: the CUDA card)."""
+        device = backend.resolve_device(device)
         Lx, Ly, Lz = self.extent
         t = torch.arange(n_frames, device=device, dtype=torch.float32) * (
             deg_per_frame * np.pi / 180.0)
@@ -85,6 +103,29 @@ class SyntheticWorld:
                             Ly / 2 + 0.48 * Ly * torch.sin(t + ph + 1.2),
                             0.35 * Lz + 0.15 * Lz * torch.cos(3.0 * t)], dim=-1)
         fwd = look - pos
+        fwd = fwd / torch.linalg.norm(fwd, dim=-1, keepdim=True)
+        up = torch.tensor([0.0, 0.0, 1.0], device=device).expand_as(fwd)
+        right = torch.linalg.cross(fwd, up)
+        right = right / torch.linalg.norm(right, dim=-1, keepdim=True)
+        down = torch.linalg.cross(fwd, right)
+        R = torch.stack([right, down, fwd], dim=-1)
+        return se3.from_rt(R, pos)
+
+    def spin_trajectory(self, n_frames: int, seed: int = 1, deg_per_frame: float = 3.0,
+                        device=None) -> torch.Tensor:
+        """fr1_360-class near-in-place yaw spin (3 deg/frame = 90 deg/s at
+        30 Hz) with a small positional wobble: (N, 4, 4) world_T_cam on
+        `device` (None: the CUDA card)."""
+        device = backend.resolve_device(device)
+        Lx, Ly, Lz = self.extent
+        t = torch.arange(n_frames, device=device, dtype=torch.float32) * (
+            deg_per_frame * np.pi / 180.0)
+        ph = float(np.random.default_rng(seed).uniform(0, 2 * np.pi))
+        pos = torch.stack([Lx / 2 + 0.03 * Lx * torch.sin(2.1 * t + ph),
+                           Ly / 2 + 0.03 * Ly * torch.cos(1.7 * t + ph),
+                           Lz / 2 + 0.05 * torch.sin(3.0 * t)], dim=-1)
+        yaw = t + ph
+        fwd = torch.stack([torch.cos(yaw), torch.sin(yaw), 0.12 * torch.sin(2.0 * t)], dim=-1)
         fwd = fwd / torch.linalg.norm(fwd, dim=-1, keepdim=True)
         up = torch.tensor([0.0, 0.0, 1.0], device=device).expand_as(fwd)
         right = torch.linalg.cross(fwd, up)
@@ -163,19 +204,55 @@ def _render(textures, extent, boxes, poses, cam: Intrinsics):
     return rgb, depth
 
 
+def draw_holes(generator: torch.Generator, batch: int, n_holes: int, H: int, W: int):
+    """Centres and radii of `n_holes` elliptical depth holes for each of
+    `batch` frames, drawn as the JAX package draws them (centre uniform
+    over the image, radii uniform in [0.02, 0.09) of its height and
+    width): (cy, cx, ry, rx), each (batch, n_holes) float32."""
+    dev = generator.device
+    u = torch.rand((4, batch, n_holes), generator=generator, device=dev)
+    return (u[0] * H, u[1] * W, (0.02 + 0.07 * u[2]) * H, (0.02 + 0.07 * u[3]) * W)
+
+
+def dropout_mask(cy, cx, ry, rx, H: int, W: int) -> torch.Tensor:
+    """Elliptical depth holes (specular or absorbing surfaces): centres and
+    radii (..., n_holes) -> (..., H, W) bool, True where depth is invalid
+    (JAX ``_dropout_mask`` given its draws)."""
+    yy = torch.arange(H, dtype=torch.float32, device=cy.device)[:, None, None]
+    xx = torch.arange(W, dtype=torch.float32, device=cy.device)[None, :, None]
+    sel = (Ellipsis, None, None, slice(None))
+    d = ((yy - cy[sel]) / ry[sel]) ** 2 + ((xx - cx[sel]) / rx[sel]) ** 2
+    return (d < 1.0).any(dim=-1)
+
+
+def dark_stretch(rgbs: np.ndarray, lo: float = 0.4, hi: float = 0.6):
+    """The dark-stretch sequence's darkening (tools/hard_sequences.py): the
+    frames from lo to hi of the sequence scaled to ~3% contrast (lights
+    off, auto-exposure failure), depth untouched. Returns (a darkened copy
+    of rgbs, first darkened frame, end of the stretch)."""
+    a, b = int(lo * len(rgbs)), int(hi * len(rgbs))
+    out = rgbs.copy()
+    out[a:b] = (out[a:b].astype(np.uint16) * 8 // 255).astype(np.uint8)
+    return out, a, b
+
+
 def render_sequence(world: SyntheticWorld, n_frames: int, seed: int = 1,
                     depth_noise_sigma: float = 0.0, batch: int = 16, trajectory=None,
-                    device=None, generator: torch.Generator | None = None):
-    """Render a trajectory on `device` -> host numpy (poses (N, 4, 4),
-    rgb u8 (N, H, W, 3), depth f32 (N, H, W)). depth_noise_sigma > 0 adds
-    sigma*z^2 Gaussian depth noise and the 1/5000 m TUM quantization."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+                    device=None, generator: torch.Generator | None = None,
+                    depth_dropout: int = 0):
+    """Render a trajectory on `device` (None: the CUDA card; the CPU only
+    when named) -> host numpy (poses (N, 4, 4), rgb u8 (N, H, W, 3), depth
+    f32 (N, H, W)). depth_noise_sigma > 0 adds sigma*z^2 Gaussian depth
+    noise and the 1/5000 m TUM quantization; depth_dropout > 0 punches that
+    many elliptical invalid-depth holes into every frame."""
+    dev = backend.resolve_device(device)
     poses = (torch.tensor(np.asarray(trajectory), dtype=torch.float32, device=dev)
              if trajectory is not None else world.orbit_trajectory(n_frames, seed=seed, device=dev))
-    if depth_noise_sigma > 0 and generator is None:
+    if (depth_noise_sigma > 0 or depth_dropout > 0) and generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     tex = torch.tensor(world.textures, device=dev)
+    H, W = world.cam.height, world.cam.width
     rgbs, depths = [], []
     for s in range(0, n_frames, batch):
         rgb, depth = _render(tex, world.extent, world.boxes, poses[s : s + batch], world.cam)
@@ -184,6 +261,10 @@ def render_sequence(world: SyntheticWorld, n_frames: int, seed: int = 1,
             noisy = depth + noise * depth_noise_sigma * depth * depth
             depth = torch.where(depth > 0, noisy, torch.zeros((), device=dev))
             depth = torch.round(depth * 5000.0) / 5000.0
+        if depth_dropout > 0:
+            holes = dropout_mask(*draw_holes(generator, depth.shape[0], depth_dropout, H, W),
+                                 H, W)
+            depth = torch.where(holes, torch.zeros((), device=dev), depth)
         rgbs.append((rgb * 255).to(torch.uint8).cpu().numpy())
         depths.append(depth.cpu().numpy())
     return poses.cpu().numpy(), np.concatenate(rgbs, 0), np.concatenate(depths, 0)

@@ -5,7 +5,9 @@ Port of ``rgbdslam_v2_tpu/ops/dct_wire.py``: the orthonormal DCT-II matrix
 ``SPECS`` ("2.3", "2.7", "3.1": bits and quantizer step per coded zigzag
 position), ``dct_luma_len``, the numpy host encoder ``encode_luma_dct``
 (two thin GEMMs and one packbits a coded position), the numpy decoder
-``decode_luma_dct_np`` and the device decoder ``decode_luma_dct_dev``.
+``decode_luma_dct_np`` (with ``luma_codes_np``, JAX ``_decode_codes_np``)
+and the device decoder ``decode_luma_dct_dev``; ``code_delta_np`` says how
+far two encoders' codes may move the decoded pixels.
 
 The JAX module keeps the chosen spec in process globals (``set_quality``).
 Here the spec is a value: :func:`spec` returns the :class:`DctSpec` of a
@@ -166,20 +168,38 @@ def encode_luma_dct(gray8: np.ndarray, sp: DctSpec) -> np.ndarray:
     return np.concatenate(out)
 
 
-def decode_luma_dct_np(packed: np.ndarray, H: int, W: int, sp: DctSpec) -> np.ndarray:
-    """Numpy reference decode: wire -> u8 (H, W)."""
+def luma_codes_np(packed: np.ndarray, H: int, W: int, sp: DctSpec) -> np.ndarray:
+    """The coded integers of a luma wire: (n_blocks, K) int32, position p's
+    code as written (DC unsigned, AC with its 2^(bits-1) offset)."""
     n_blocks = (H // 8) * (W // 8)
-    coef = np.zeros((n_blocks, sp.k_coded), np.float32)
+    codes = np.zeros((n_blocks, sp.k_coded), np.int32)
     off = 0
     for p in range(sp.k_coded):
         b = int(sp.bit_alloc[p])
         nb = (n_blocks * b + 7) // 8
         bits = np.unpackbits(packed[off : off + nb])[: n_blocks * b].reshape(n_blocks, b)
-        q = (bits.astype(np.uint32) @ (1 << np.arange(b - 1, -1, -1, dtype=np.uint32))
-             ).astype(np.int32)
-        half = 0 if p == 0 else 1 << (b - 1)
-        coef[:, p] = (q - half).astype(np.float32) * float(sp.qstep[p])
+        codes[:, p] = (bits.astype(np.uint32) @ (1 << np.arange(b - 1, -1, -1, dtype=np.uint32))
+                       ).astype(np.int32)
         off += nb
+    return codes
+
+
+def code_delta_np(codes_a: np.ndarray, codes_b: np.ndarray, H: int, W: int,
+                  sp: DctSpec) -> np.ndarray:
+    """(H, W) float32: what the difference of two code arrays (luma_codes_np
+    of two wires) adds to the decoder's pixels before rounding, since the
+    decode is linear in the codes: a bound, within 1 for the rounding, of
+    how far the two wires' decodes may differ."""
+    coef = (codes_a - codes_b).astype(np.float32) * sp.qstep
+    blocks = coef @ sp.synthesis
+    return blocks.reshape(H // 8, W // 8, 8, 8).transpose(0, 2, 1, 3).reshape(H, W)
+
+
+def decode_luma_dct_np(packed: np.ndarray, H: int, W: int, sp: DctSpec) -> np.ndarray:
+    """Numpy reference decode: wire -> u8 (H, W)."""
+    q = luma_codes_np(packed, H, W, sp)
+    half = np.asarray([0] + [1 << (int(b) - 1) for b in sp.bit_alloc[1:]], np.int32)
+    coef = (q - half).astype(np.float32) * sp.qstep
     blocks = coef @ sp.synthesis
     img = blocks.reshape(H // 8, W // 8, 8, 8).transpose(0, 2, 1, 3).reshape(H, W)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)

@@ -84,9 +84,11 @@ def test_compact_frame_ydct_and_unpack_match_jax(q, depth_bits, jax_quality, mon
     jax_quality(q)
     sp = tdw.spec(q)
     rgb, depth = _frame(depth_bits)
-    got = ti.compact_frame(rgb, depth, STRIDE, depth_bits, sp)
-    # the JAX package's numpy path: its ydct luma of the same Y plane and its
-    # yc12 depth/chroma tail (the tail is shared by both formats)
+    # the port's numpy encoder (compact_frame's plain version; its native
+    # encoder is held to it in test_torch_native_compact.py) against the JAX
+    # package's numpy path: its ydct luma of the same Y plane and its yc12
+    # depth/chroma tail (the tail is shared by both formats)
+    got = ti.compact_frame_numpy(rgb, depth, STRIDE, depth_bits, sp)
     r16 = rgb.astype(np.uint16)
     gray8 = ((r16[..., 0] * 77 + r16[..., 1] * 150 + r16[..., 2] * 29) >> 8).astype(np.uint8)
     tail = np.asarray(jm.compact_frame(rgb, depth, STRIDE, fmt="yc12", gray_bits=8,
@@ -96,7 +98,7 @@ def test_compact_frame_ydct_and_unpack_match_jax(q, depth_bits, jax_quality, mon
     # a grey input goes through the JAX package's whole numpy ydct branch
     monkeypatch.setattr(native_loader, "compact_ydct", lambda *a, **k: None)
     np.testing.assert_array_equal(
-        ti.compact_frame(gray8, depth, STRIDE, depth_bits, sp),
+        ti.compact_frame_numpy(gray8, depth, STRIDE, depth_bits, sp),
         np.asarray(jm.compact_frame(gray8, depth, STRIDE, fmt="ydct", depth_bits=depth_bits)))
 
     g_j, d_j, c_j = jm._unpack_yc12(jnp.asarray(ref), H, W, STRIDE, "dct", depth_bits)

@@ -111,6 +111,37 @@ def test_pipelined_drains_give_the_blocking_graph(sequence, monkeypatch):
     np.testing.assert_allclose(pipelined.manager.poses(), blocking.manager.poses(), atol=1e-5)
 
 
+def test_pipelined_drains_read_one_step_call_late(sequence, monkeypatch):
+    """The shipped landing rule with copies that report in flight (as on
+    the card): each staged batch is read, waiting on its event, exactly one
+    step call after the drain that staged it, whatever the copy reports;
+    the graph equals the blocking drains' and every such wait is counted."""
+    over = dict(SMALL, tpu_frames_per_step=1, tpu_encode_ahead=False, tpu_drain_interval=3,
+                pose_relative_to="first")
+    reads = []  # (step call the copy was started in, step call it was read in)
+
+    class InFlight:
+        def __init__(self, mgr):
+            self.mgr, self.started = mgr, mgr._step_calls
+
+        def query(self):
+            return False
+
+        def synchronize(self):
+            reads.append((self.started, self.mgr._step_calls))
+
+    monkeypatch.setattr(GraphManager, "_start_copy",
+                        lambda self, summary: (summary, InFlight(self)))
+    pipelined = _run(dict(over, tpu_drain_pipelined=True), sequence, 14)
+    waits = pipelined.manager.copy_waits
+    monkeypatch.undo()
+    blocking = _run(dict(over, tpu_drain_pipelined=False), sequence, 14)
+    assert len(reads) >= 3 and all(read == started + 1 for started, read in reads), reads
+    assert waits == len(reads)
+    assert _graph(pipelined) == _graph(blocking)
+    np.testing.assert_allclose(pipelined.manager.poses(), blocking.manager.poses(), atol=1e-5)
+
+
 def test_four_frames_a_step_equal_one(sequence):
     one = _run(dict(SMALL, tpu_frames_per_step=1, tpu_encode_ahead=False), sequence)
     four = _run(dict(SMALL, tpu_frames_per_step=4, tpu_encode_ahead=False), sequence)

@@ -20,15 +20,18 @@ relative) at B in {1, 8, 64} and M in {1, 37, 300, 512}, and with the
 matches read from global memory (M = 2000, too many to stage); keeps T
 where no match is valid, equals the plain version for zero weights, gives
 a proper rotation for collinear inliers, replays in a CUDA graph as it
-runs eagerly, and makes no synchronizing call."""
+runs eagerly, and makes no synchronizing call. The native host wire
+encoder, built on the card's machine, writes the numpy encoder's yc12
+bytes and ydct codes within 1 of numpy's."""
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import kabsch_problems, refine_against_plain, refine_problems
 from rgbdslam_v2_tpu_torch.core import alignment
+from rgbdslam_v2_tpu_torch.graph import ingest
 from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor
-from rgbdslam_v2_tpu_torch.ops import detect, fast, registration
+from rgbdslam_v2_tpu_torch.ops import dct_wire, detect, fast, registration
 from rgbdslam_v2_tpu_torch.ops.image import resize_bilinear
 
 
@@ -241,3 +244,37 @@ def test_cuda_refine_makes_no_sync():
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out[0]).all())
+
+
+@pytest.mark.cuda
+def test_native_encoder_equals_numpy_on_the_card_host():
+    """The encoder the card's machine builds (g++, or nvcc as C++ without
+    one) writes numpy's yc12 bytes for u16 and f32 depth at 10 and 12 bits,
+    and ydct codes within 1 of numpy's, whose decodes differ only as the
+    differing codes move the pixels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    rgb = rng.integers(0, 256, (480, 640, 3), np.uint8)
+    depths = (rng.integers(0, 40000, (480, 640)).astype(np.uint16),
+              rng.uniform(0.0, 8.0, (480, 640)).astype(np.float32))
+    ingest.reset_encodes()
+    for depth in depths:
+        for bits in (10, 12):
+            np.testing.assert_array_equal(ingest.compact_frame(rgb, depth, 2, bits),
+                                          ingest.compact_frame_numpy(rgb, depth, 2, bits))
+    sp = dct_wire.spec("2.7")
+    native = ingest.compact_frame(rgb, depths[0], 2, 10, sp)
+    ref = ingest.compact_frame_numpy(rgb, depths[0], 2, 10, sp)
+    nl = dct_wire.dct_luma_len(480, 640, sp)
+    np.testing.assert_array_equal(native[nl:], ref[nl:])
+    cn = dct_wire.luma_codes_np(native[:nl], 480, 640, sp)
+    cr = dct_wire.luma_codes_np(ref[:nl], 480, 640, sp)
+    assert np.abs(cn - cr).max() <= 1
+    got = dct_wire.decode_luma_dct_np(native[:nl], 480, 640, sp).astype(int)
+    want = dct_wire.decode_luma_dct_np(ref[:nl], 480, 640, sp).astype(int)
+    # the decodes differ only as far as the differing codes move the pixels
+    bound = np.abs(dct_wire.code_delta_np(cn, cr, 480, 640, sp)) + 1.0
+    assert (np.abs(got - want) <= bound).all()
+    assert ingest.ENCODES == {"native": 5, "numpy": 0}
+

@@ -3,8 +3,12 @@ optimize calls report their iteration count (the JAX package's rule, set at
 rgbdslam_v2_tpu/graph/manager.py in GraphManager.optimize), and, on the
 card (marker `cuda`): the default configuration's host-decision path waits
 for the card once a frame, the keep-all step never, and a group of frames
-replayed as one CUDA graph equals the same frames stepped one by one.
-Imports no JAX, so it runs on the card:
+replayed as one CUDA graph equals the same frames stepped one by one. With
+the GICP rescue (use_icp) on a 640x480 dark stretch: the keep-all path
+waits for the card only at the blocking drains of its starved mode (never
+for a rescue in flight), replayed groups with rescues equal the same groups
+stepped eagerly, and the default path adds one wait on a frame that
+rescues and none otherwise. Imports no JAX, so it runs on the card:
 
     python -m pytest --noconftest tests/test_torch_manager.py -q
 """
@@ -18,7 +22,9 @@ import torch
 from rgbdslam_v2_tpu_torch.config import ParameterServer, default_params
 from rgbdslam_v2_tpu_torch.core import alignment
 from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT, Intrinsics
+from rgbdslam_v2_tpu_torch.graph.device_step import group_views, slam_stepN
 from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
+from rgbdslam_v2_tpu_torch.io.synthetic import dark_stretch
 from rgbdslam_v2_tpu_torch.ops import detect, registration
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
@@ -43,7 +49,7 @@ BENCH = dict(
 @pytest.fixture(scope="module")
 def manager():
     world = SyntheticWorld.create(seed=0, texture_size=128, cam=CAM)
-    _, rgbs, depths = render_sequence(world, 4, seed=2)
+    _, rgbs, depths = render_sequence(world, 4, seed=2, device="cpu")
     pipe = SlamPipeline(CAM, ParameterServer(dict(PARAMS)), device="cpu")
     pipe.run_arrays(rgbs, depths, np.arange(4) / 30.0)
     assert pipe.manager.n_nodes == 4
@@ -85,6 +91,19 @@ def _render(frames):
     world = SyntheticWorld.create(seed=0, cam=TUM_DEFAULT)
     poses, rgbs, depths = render_sequence(world, frames, seed=2, depth_noise_sigma=0.01,
                                           device="cuda")
+    return poses, rgbs, np.clip(depths * 5000.0 + 0.5, 0, 65535).astype(np.uint16)
+
+
+def _render_dark(frames):
+    """tools/hard_sequences.py's dark-stretch world at 640x480 (world seed
+    7, render seed 8, depth noise), its middle fifth at ~3% contrast."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    world = SyntheticWorld.create(seed=7, cam=TUM_DEFAULT)
+    poses, rgbs, depths = render_sequence(world, frames, seed=8, depth_noise_sigma=0.01,
+                                          device="cuda")
+    rgbs, lo, hi = dark_stretch(rgbs)
+    assert hi - lo >= 4
     return poses, rgbs, np.clip(depths * 5000.0 + 0.5, 0, 65535).astype(np.uint16)
 
 
@@ -196,3 +215,105 @@ def test_grouped_replay_equals_eager_steps():
     assert d4 == d1 == 25 and k4 == k1 == (24, 0)  # (refine, Kabsch) launches
     assert s4 == s1
     np.testing.assert_allclose(p4, p1, rtol=0, atol=1e-6)
+
+
+ICP_BENCH = {**BENCH, "use_icp": True, "icp_max_iterations": 12, "tpu_candidate_batch": 4,
+             "optimizer_skip_step": 100}
+
+
+@pytest.mark.cuda
+def test_rescues_in_flight_make_no_sync():
+    """make_pipe with use_icp and a fixed FAST threshold, 4 frames a step,
+    on 48 frames with a dark stretch: in every replayed group the
+    synchronizing calls are exactly
+    the blocking drain copies of starved mode (graph/manager.py, counted
+    by blocking_pulls), so a group without one makes none, and such groups
+    run with retroactive rescues in flight; no wait for a copy there leaves
+    the card with no step queued (idle_waits); the rescue fires."""
+    poses, rgbs, depths = _render_dark(48)
+    # the detector threshold held (no adaptive ladder): every group after
+    # the first two of the run replays the one captured graph
+    pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
+        {**ICP_BENCH, "adjuster_max_iterations": 0}))
+    mgr = pipe.manager
+    group = pipe._process_group
+    groups = []  # (sync sites, blocking pulls, rescues pending at the start, idle waits)
+
+    def watched(*a, **kw):
+        sg = mgr.step_graph
+        before = (sg.captures, sg.eager_groups, mgr.blocking_pulls, len(mgr._pending_rescues),
+                  mgr.idle_waits)
+        sites = _sync_sites(lambda: group(*a, **kw))
+        if (sg.captures, sg.eager_groups) == before[:2]:
+            groups.append((sites, mgr.blocking_pulls - before[2], before[3],
+                           mgr.idle_waits - before[4]))
+
+    pipe._process_group = watched
+    pipe.run_arrays(rgbs, depths, np.arange(48) / 30.0, gt_poses=poses)
+    assert groups
+    for sites, pulls, _, _ in groups:
+        assert len(sites) == pulls and set(sites) <= {"graph/manager.py"}, (sites, pulls)
+    assert any(pending and not pulls for _, pulls, pending, _ in groups), groups
+    assert not any(idle for _, pulls, pending, idle in groups if pending and not pulls), groups
+    assert mgr.rescue_items >= 1 and mgr.statistics()["icp_rescues"] >= 1
+
+
+@pytest.mark.cuda
+def test_replayed_groups_with_rescues_equal_eager_groups():
+    """The same run, 4 frames a step with pipelined drains, once replayed as
+    CUDA graphs and once with every group stepped eagerly frame by frame
+    (slam_stepN): a staged drain is read one step call after it, however
+    fast the host runs, so drains and rescues land at the same frames, the
+    trajectories agree within 1e-6 and the statistics are equal; the rescue
+    fired."""
+    poses, rgbs, depths = _render_dark(48)
+    runs = []
+    for eager in (False, True):
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(dict(ICP_BENCH)))
+        mgr = pipe.manager
+        if eager:
+            def run(host_flat, n, L, B, cfg, _mgr=mgr):
+                flat = host_flat.to(_mgr.device, non_blocking=True)
+                return slam_stepN(_mgr.store, _mgr.graph, group_views(flat, n, L, B),
+                                  _mgr.generator, **cfg)
+            mgr.step_graph.run = run
+        pipe.run_arrays(rgbs, depths, np.arange(48) / 30.0, gt_poses=poses)
+        runs.append((mgr.poses(), mgr.statistics(), mgr.step_graph.replays))
+    (p_replay, s_replay, replays), (p_eager, s_eager, _) = runs
+    assert replays >= 1 and s_replay["icp_rescues"] >= 1
+    assert s_replay == s_eager
+    np.testing.assert_allclose(p_replay, p_eager, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_default_path_rescue_adds_one_pull():
+    """default_params() with use_icp on 36 frames with a dark stretch: a
+    frame that runs the batched rescue of its failed candidates waits for
+    the card twice in graph/manager.py (the comparison, the rescue), every
+    other frame once; the rescue fires."""
+    poses, rgbs, depths = _render_dark(36)
+    pipe = SlamPipeline(TUM_DEFAULT, ParameterServer({"use_icp": True}))  # the defaults + ICP
+    mgr = pipe.manager
+    online, rescue_batch = mgr.optimize, mgr._icp_rescue_batch
+    calls = []
+
+    def unwatched_optimize(*args, **kw):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return online(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def counted_rescue(*args, **kw):
+        calls[-1] += 1
+        return rescue_batch(*args, **kw)
+
+    mgr.optimize, mgr._icp_rescue_batch = unwatched_optimize, counted_rescue
+    for i in range(len(rgbs)):
+        calls.append(0)
+        sites = _sync_sites(lambda: pipe.process_frame(
+            rgbs[i], depths[i], i / 30.0, gt_pose=poses[0] if i == 0 else None))
+        if i > 0:
+            assert sites.count("graph/manager.py") == 1 + calls[-1], (i, sites, calls[-1])
+    assert sum(calls) >= 1 and mgr.statistics()["icp_rescues"] >= 1
+

@@ -75,7 +75,7 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 @pytest.mark.parametrize("override", [
     {"use_robot_odom": True}, {"tpu_gray_bits": 6}, {"tpu_ingest_format": "raw"},
-    {"tpu_wire_delta": True, "tpu_frames_per_step": 2}, {"use_icp": True},
+    {"tpu_wire_delta": True, "tpu_frames_per_step": 2}, {"depth_scaling_factor": 2.0},
     {"global_loop_candidates": 2}, {"tpu_wire_delta": True},
     {"feature_extractor_type": "SIFT"}, {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
     {"g2o_transformation_refinement": 2}, {"tpu_frames_per_step": 3},
@@ -113,6 +113,8 @@ def test_ydct_outside_its_domain_raises(override):
      "tpu_encode_ahead": True},
     {"tpu_ingest_format": "ydct"}, {"tpu_frames_per_step": 2}, {"tpu_encode_ahead": True},
     {"tpu_drain_pipelined": True},
+    # the GICP rescue, on the keep-all fast path and on the host-decision path
+    {"use_icp": True}, {"use_icp": True, "keep_all_nodes": False, "icp_variant": "icp"},
 ])
 def test_config_inside_the_port_builds(override):
     pipe = SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")
@@ -122,9 +124,9 @@ def test_config_inside_the_port_builds(override):
 def test_torch_renderer_matches_jax(world, sequence):
     poses, rgbs, depths, _ = sequence
     tworld = interop.world_from_numpy(**interop.world_to_numpy(world), cam=Intrinsics(*CAM))
-    t_orbit = tworld.orbit_trajectory(N_FRAMES, seed=2).numpy()
+    t_orbit = tworld.orbit_trajectory(N_FRAMES, seed=2, device="cpu").numpy()
     np.testing.assert_allclose(t_orbit, poses, atol=1e-5)
-    _, t_rgb, t_depth = render_sequence(tworld, 6, trajectory=poses[:6])
+    _, t_rgb, t_depth = render_sequence(tworld, 6, trajectory=poses[:6], device="cpu")
     assert np.abs(t_rgb.astype(int) - rgbs[:6].astype(int)).max() <= 1
     np.testing.assert_allclose(t_depth, depths[:6], atol=1e-4)
     ref = jnp.asarray(depths[:6])

@@ -24,8 +24,17 @@ is_ready() false, so its staged batches stay unread for a while (and their
 nodes below the inaffected watermark). --jax-drains-land-at-once makes
 every JAX array report ready, as the port's CPU copies are.
 
+--sequence takes another of tools/hard_sequences.py's full-scale
+sequences in place of the bench orbit (low_texture, depth_holes, spin360
+rendered by that tool and cut to N frames; dark_stretch rendered at N
+frames and darkened from 40% to 60% of them, as chip_smoke.py phase 11
+does); --icp adds use_icp=True to both packages' parameters; --config
+default runs default_params() (the host-decision path) in place of
+make_pipe.
+
 Usage: JAX_PLATFORMS=cpu python3 tools/make_pipe_same_frames.py
            [--frames 200] [--seeds 0 1] [--threads 4] [--jax-drains-land-at-once]
+           [--sequence orbit] [--icp] [--config make_pipe]
 """
 from __future__ import annotations
 
@@ -63,6 +72,10 @@ def main() -> None:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--jax-drains-land-at-once", action="store_true")
+    ap.add_argument("--sequence", default="orbit",
+                    choices=("orbit", "dark_stretch", "low_texture", "depth_holes", "spin360"))
+    ap.add_argument("--icp", action="store_true")
+    ap.add_argument("--config", default="make_pipe", choices=("make_pipe", "default"))
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import jax
@@ -84,15 +97,30 @@ def main() -> None:
     from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
     t0 = time.perf_counter()
-    world = JWorld.create(seed=WORLD_SEED, cam=J_TUM)
-    orbit = world.orbit_trajectory(args.frames, seed=2)  # bench.py's, cut to N
-    poses, rgbs, depths = render_sequence(world, args.frames, seed=2, depth_noise_sigma=0.01,
-                                          trajectory=orbit)
+    if args.sequence == "orbit":
+        world = JWorld.create(seed=WORLD_SEED, cam=J_TUM)
+        orbit = world.orbit_trajectory(args.frames, seed=2)  # bench.py's, cut to N
+        poses, rgbs, depths = render_sequence(world, args.frames, seed=2,
+                                              depth_noise_sigma=0.01, trajectory=orbit)
+    elif args.sequence == "dark_stretch":
+        from rgbdslam_v2_tpu_torch.io.synthetic import dark_stretch
+
+        poses, rgbs, depths = render_sequence(JWorld.create(seed=7, cam=J_TUM), args.frames,
+                                              seed=8, depth_noise_sigma=0.01)
+        rgbs = dark_stretch(np.asarray(rgbs))[0]
+    else:
+        sys.path.insert(0, str(ROOT / "tools"))
+        from hard_sequences import build_sequences
+
+        poses, rgbs, depths, _ = build_sequences(J_TUM, small=False,
+                                                 with_fr2=False)[args.sequence]()
+        poses, rgbs, depths = poses[: args.frames], rgbs[: args.frames], depths[: args.frames]
+        args.frames = len(rgbs)
     poses = np.asarray(poses)
     depths = np.clip(np.asarray(depths) * 5000.0 + 0.5, 0, 65535).astype(np.uint16)
     rgbs = np.asarray(rgbs)
     stamps = np.arange(args.frames) / 30.0
-    print(f"rendered {args.frames} frames 640x480 with the JAX package in "
+    print(f"rendered {args.frames} frames 640x480 of {args.sequence} with the JAX package in "
           f"{time.perf_counter() - t0:.1f} s (CPU)", flush=True)
 
     if args.jax_drains_land_at_once:
@@ -100,8 +128,9 @@ def main() -> None:
     for seed in args.seeds:
         res = {}
         for name in ("jax", "torch"):
-            params = dict(MAKE_PIPE, tpu_seed=seed)
-            if name == "jax":
+            params = dict(MAKE_PIPE if args.config == "make_pipe" else {}, tpu_seed=seed,
+                          **({"use_icp": True} if args.icp else {}))
+            if name == "jax":  # defaults, then the configuration's values
                 quality = jdw.QUALITY
                 pipe = JPipeline(J_TUM, JParams(params))
             else:
