@@ -8,8 +8,9 @@ and prints no result:
   1. device and build: the card's name and power limit (nvidia-smi), torch
      and CUDA versions, and the time to build csrc/detect_corners.cu and
      csrc/kabsch.cu (one nvcc a source; kabsch.cu holds the Kabsch and the
-     RANSAC refine kernels) and the host wire encoder
-     native/compact_ingest.cpp (g++ -O3 -ffp-contract=off, or nvcc -x c++
+     RANSAC refine kernels), the host wire encoder
+     native/compact_ingest.cpp and the PNG row unfilter
+     csrc/png_unfilter.cpp (g++ -O3 -ffp-contract=off, or nvcc -x c++
      without g++; the compiler is printed), all started together;
   2. kernel against plain: the one-launch detect kernel on the four pyramid
      levels of a 640x480 frame the port renders, against its plain torch
@@ -127,11 +128,45 @@ and prints no result:
      stretch (the default path's inline batched rescue): fps, nodes,
      rescues, ATE, launches.
 
+ 12. the TUM entry point: the bench frames written as a TUM directory
+     twice, in a temporary directory deleted at the end: by
+     io/synthetic.save_as_tum_dataset (the port's PNG writer: every row Up,
+     deflate level 1), and as libpng writes them (adaptive_png: adaptive
+     filters, zlib's default level, 8 KiB IDAT chunks; TUM's own files).
+     For each: every frame decodes back to its rendered bytes (RGB, depth
+     u16) with decode ms a frame split into read, chunks + CRCs + inflate,
+     C unfilter and image; the rows a filter type holds (the adaptive
+     files must hold Paeth rows); the C unfilter against the numpy one
+     (UNFILTER_FRAMES Up frames, UNFILTER_FRAMES_ADAPTIVE adaptive ones)
+     and the numpy unfilter's ms; the TumLoader's frames/s. Then
+     `rgbdslam-torch run --evaluate --save-clouds --save-octomap
+     --save-g2o --save-features` on the adaptive directory with
+     make_pipe's -p pairs, in process (apps.cli.main): L4 at most 0.03 m,
+     detect launches = frames, refine = frames - 1, the trajectory equal to
+     run_arrays' on the same frames (the meters TumDataset.load gives)
+     within 1e-5 m (bench_config_run warms up one frame at a time and
+     optimizes after it, which the CLI does not: run_arrays is the same
+     path), every output parsed by the port's readers (g2o vertices =
+     nodes, edges = active edges, features = valid keypoints, an octomap
+     and a cloud with points), the ate subcommand within 1e-6 m of the
+     report's L4 (the file rounds to 1e-7 m); the voxel map of VOXEL_NODES
+     node clouds on the card equal to the CPU's; the default configuration
+     through the CLI on DEFAULT_FRAMES frames (L4 at most
+     DEFAULT_ATE_L4_MAX); a checkpoint after CHECKPOINT_AT frames loaded
+     into a fresh pipeline, both fed CHECKPOINT_MORE more frames, once
+     with no online optimize (poses and statistics equal) and once with it
+     every 10 frames (poses within 1e-5 m: its float atomic adds on the
+     card part the two in the last bits; at least one optimize must run
+     after the load). Printed only: save ms, peak memory, the replayed
+     groups' syncs and waits, and run_tum on each directory against
+     run_arrays fps, alternating, with the loader's waits and each run's
+     wall, main-thread CPU and process CPU ms a frame.
+
 Before the last line it prints one JSON object with the kernels' measured
 numbers (launches from phase 6's run, the bench configuration, and from
 each later phase's; the Kabsch kernel's are 0 there, its refits having
 moved into the refine kernel); the last line is {"ok": true, "device":
-{...}}. --frames N (at least 23) shortens phases 3-11 to N frames each.
+{...}}. --frames N (at least 23) shortens phases 3-12 to N frames each.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -141,12 +176,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -410,6 +448,29 @@ def sync_sites(fn) -> list:
             if "synchroniz" in str(w.message)]
 
 
+def watch_groups(pipe) -> dict:
+    """Wrap pipe._process_group so that each group call records (sites of
+    its syncs, blocking drain copies, rescues in flight at its start, (waits
+    for copies not landed, of them idle)) under "replay" when it only
+    replayed a captured graph, else under "setup"; returns that dict.
+    `del pipe._process_group` unwraps."""
+    mgr = pipe.manager
+    group, sg = pipe._process_group, mgr.step_graph
+    syncs = {"replay": [], "setup": []}
+
+    def watched_group(*a, **kw):
+        before = (sg.captures, sg.eager_groups)
+        pulls, pending = mgr.blocking_pulls, len(mgr._pending_rescues)
+        waits = (mgr.copy_waits, mgr.idle_waits)
+        sites = sync_sites(lambda: group(*a, **kw))
+        syncs["replay" if (sg.captures, sg.eager_groups) == before else "setup"].append(
+            (sites, mgr.blocking_pulls - pulls, pending,
+             (mgr.copy_waits - waits[0], mgr.idle_waits - waits[1])))
+
+    pipe._process_group = watched_group
+    return syncs
+
+
 def bench_config_run(poses, rgbs, depths, stamps, dev, keep=False, **over) -> dict:
     """Phase 6 (and phases 10 and 11 on their sequences):
     make_pipe_params(**over) on the sequence as bench.py drives it (20
@@ -441,21 +502,8 @@ def bench_config_run(poses, rgbs, depths, stamps, dev, keep=False, **over) -> di
         pipe.process_frame(rgbs[i], depths[i], float(stamps[i]),
                            gt_pose=poses[0] if i == 0 else None)
     mgr.optimize(blocking=True)
-    group, sg = pipe._process_group, mgr.step_graph
-    # per timed group: (sites of its syncs, blocking drain copies, rescues
-    # in flight at its start, (waits for copies not landed, of them idle))
-    syncs = {"replay": [], "setup": []}
-
-    def watched_group(*a, **kw):
-        before = (sg.captures, sg.eager_groups)
-        pulls, pending = mgr.blocking_pulls, len(mgr._pending_rescues)
-        waits = (mgr.copy_waits, mgr.idle_waits)
-        sites = sync_sites(lambda: group(*a, **kw))
-        syncs["replay" if (sg.captures, sg.eager_groups) == before else "setup"].append(
-            (sites, mgr.blocking_pulls - pulls, pending,
-             (mgr.copy_waits - waits[0], mgr.idle_waits - waits[1])))
-
-    pipe._process_group = watched_group
+    sg = mgr.step_graph
+    syncs = watch_groups(pipe)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe.params.set("skip_first_n_frames", WARMUP)
@@ -681,18 +729,8 @@ def fr2_run(rgbs, depths, dev, rounds: int = FR2_ROUNDS) -> dict:
     for i in range(WARMUP):
         pipe.process_frame(rgbs[i], depths[i], i / 30.0)
     torch.cuda.synchronize()
-    group, sg = pipe._process_group, mgr.step_graph
-    replay_syncs, replay_waits = [], [0, 0]  # waits for copies not landed, idle
-
-    def watched_group(*a, **kw):
-        before, waits = (sg.captures, sg.eager_groups), (mgr.copy_waits, mgr.idle_waits)
-        sites = sync_sites(lambda: group(*a, **kw))
-        if (sg.captures, sg.eager_groups) == before:
-            replay_syncs.extend(sites)
-            replay_waits[0] += mgr.copy_waits - waits[0]
-            replay_waits[1] += mgr.idle_waits - waits[1]
-
-    pipe._process_group = watched_group
+    sg = mgr.step_graph
+    syncs = watch_groups(pipe)
     chunks = []
     for r in range(rounds):
         start = WARMUP if r == 0 else 0
@@ -702,6 +740,7 @@ def fr2_run(rgbs, depths, dev, rounds: int = FR2_ROUNDS) -> dict:
         torch.cuda.synchronize()
         chunks.append((mgr.n_nodes, (n - start) / (time.perf_counter() - t0)))
     del pipe._process_group
+    replay = syncs["replay"]
     launches = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
     pipe.params.set("pose_relative_to", "first")
     solvers = dict(mgr.solver_calls)
@@ -714,8 +753,9 @@ def fr2_run(rgbs, depths, dev, rounds: int = FR2_ROUNDS) -> dict:
     est = mgr.poses()
     return dict(chunks=chunks, opt_ms=opt_ms, chi2=chi2, iters=mgr.last_optimize_iters,
                 solver=solver, stats=stats, launches=launches, captures=sg.captures,
-                replays=sg.replays, replay_syncs=replay_syncs, replay_waits=replay_waits[0],
-                replay_idle=replay_waits[1],
+                replays=sg.replays, replay_syncs=[x for g, *_ in replay for x in g],
+                replay_waits=sum(w for *_, (w, _) in replay),
+                replay_idle=sum(i for *_, (_, i) in replay),
                 poses_ok=bool(np.isfinite(est).all()), frames=n * rounds,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -799,6 +839,378 @@ def rescue_item_ms(mgr, nid: int) -> dict:
                 iterations=iters, shape=(src.shape[1], dst.shape[1]))
 
 
+CHECKPOINT_AT, CHECKPOINT_MORE = 260, 60  # phase 12: frames before the save, after it
+VOXEL_NODES = 10  # phase 12: node clouds inserted on the card and on the CPU
+UNFILTER_FRAMES = 20  # phase 12: Up-filtered frames unfiltered in C and in numpy
+# phase 12: adaptively filtered frames unfiltered in numpy too (its Average
+# and Paeth rows are Python loops, ~1 s a frame)
+UNFILTER_FRAMES_ADAPTIVE = 2
+IDAT_BYTES = 8192  # libpng's IDAT chunk size
+
+
+def adaptive_png(img) -> bytes:
+    """img as libpng writes it by default: each row's filter the one of the
+    five whose filtered bytes, read as signed, have the least absolute sum
+    (libpng's heuristic), deflated at zlib's default level, in IDAT chunks
+    of IDAT_BYTES. TUM's own PNGs come from libpng (through OpenCV)."""
+    import zlib
+
+    import numpy as np
+    from rgbdslam_v2_tpu_torch.io import png
+
+    if img.ndim == 3:
+        ctype, depth, bpp, raw = 2, 8, 3, img.reshape(img.shape[0], -1)
+    else:
+        ctype, depth, bpp = 0, 16, 2
+        raw = img.astype(">u2").view(np.uint8).reshape(img.shape[0], -1)
+    rows = raw.shape[0]
+    cost = np.stack([
+        np.abs(np.frombuffer(png.filter_rows(raw, bpp, t), np.int8).reshape(rows, -1)[:, 1:]
+               .astype(np.int32)).sum(1) for t in range(5)])
+    body = zlib.compress(png.filter_rows(raw, bpp, cost.argmin(0)), zlib.Z_DEFAULT_COMPRESSION)
+    ihdr = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], depth, ctype, 0, 0, 0)
+    return (png.SIGNATURE + png._chunk(b"IHDR", ihdr)
+            + b"".join(png._chunk(b"IDAT", body[k : k + IDAT_BYTES])
+                       for k in range(0, len(body), IDAT_BYTES))
+            + png._chunk(b"IEND", b""))
+
+
+def decode_split(ds, n: int, rgbs, depths) -> dict:
+    """Each of the n pairs of ds decoded on this thread as decode_png does it,
+    timed by step (read the file, walk the chunks + CRCs + inflate, the C
+    unfilter, the bytes as an image), checked against the rendered frame.
+    Returns ms a frame by step, the frames that decode unequal and the
+    filter types the rows use (a count for each)."""
+    import numpy as np
+    from rgbdslam_v2_tpu_torch.io import png
+
+    t = dict(read=0.0, inflate=0.0, unfilter=0.0, image=0.0)
+    bad, types = [], np.zeros(5, np.int64)
+    for i in range(n):
+        got = []
+        for f in (ds.pairs[i][1], ds.pairs[i][3]):
+            t0 = time.perf_counter()
+            data = (ds.root / f).read_bytes()
+            t1 = time.perf_counter()
+            inf = png.inflate_png(data)
+            t2 = time.perf_counter()
+            raw = png.unfilter_native(inf.filtered, inf.height, inf.row_bytes, inf.bpp)
+            t3 = time.perf_counter()
+            got.append(inf.image(raw))
+            t4 = time.perf_counter()
+            for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                t[k] += dt
+            types += np.bincount(np.frombuffer(inf.filtered, np.uint8)[:: inf.row_bytes + 1],
+                                 minlength=5)[:5]
+        if not (np.array_equal(got[0], rgbs[i]) and np.array_equal(got[1], depths[i])):
+            bad.append(i)
+    out = {k: 1e3 * v / n for k, v in t.items()}
+    out["total"] = sum(out.values())
+    return dict(ms=out, bad=bad, filters=types.tolist())
+
+
+def unfilter_check(ds, m: int) -> float:
+    """The C unfilter against its numpy plain version on the first m pairs
+    of ds (fails where they differ); the numpy unfilter's ms a frame."""
+    import numpy as np
+    from rgbdslam_v2_tpu_torch.io import png
+
+    t_np = 0.0
+    for i in range(m):
+        for f in (ds.pairs[i][1], ds.pairs[i][3]):
+            inf = png.inflate_png((ds.root / f).read_bytes())
+            t0 = time.perf_counter()
+            plain = png.unfilter_numpy(inf.filtered, inf.height, inf.row_bytes, inf.bpp)
+            t_np += time.perf_counter() - t0
+            if not np.array_equal(
+                    plain, png.unfilter_native(inf.filtered, inf.height, inf.row_bytes, inf.bpp)):
+                fail(f"the C unfilter differs from numpy on {f}")
+    return 1e3 * t_np / m
+
+
+def make_pipe_flags() -> list:
+    """MAKE_PIPE as the CLI's -p pairs."""
+    return [x for k, v in MAKE_PIPE.items() for x in ("-p", f"{k}={v}")]
+
+
+def run_cli(argv) -> tuple:
+    """rgbdslam_v2_tpu_torch.apps.cli.main(argv) in this process, its output
+    captured: (exit code, stdout, the SlamPipeline it built or None), its
+    stderr printed to ours where the code is not 0 (an exception other than
+    the CLI's own errors propagates with its traceback); the
+    pipeline's save_clouds and save_octomap are timed (host clock,
+    synchronized; key "save_ms" on the pipeline)."""
+    import io
+
+    import torch
+    import rgbdslam_v2_tpu_torch.pipeline as pipeline_pkg
+    from rgbdslam_v2_tpu_torch.apps import cli
+
+    built = []
+
+    class Recorded(pipeline_pkg.SlamPipeline):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.save_ms, self.group_syncs = {}, watch_groups(self)
+            built.append(self)
+
+        def _timed(self, name, fn, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.save_ms[name] = 1e3 * (time.perf_counter() - t0)
+            return out
+
+        def save_clouds(self, *a, **kw):
+            return self._timed("save_clouds", super().save_clouds, *a, **kw)
+
+        def save_octomap(self, *a, **kw):
+            return self._timed("save_octomap", super().save_octomap, *a, **kw)
+
+    buf, err = io.StringIO(), io.StringIO()
+    with (patched(pipeline_pkg, "SlamPipeline", Recorded), contextlib.redirect_stdout(buf),
+          contextlib.redirect_stderr(err)):
+        code = cli.main([str(a) for a in argv])
+    if code != 0:
+        print(err.getvalue()[-4000:], file=sys.stderr, end="")
+    return code, buf.getvalue(), built[0] if built else None
+
+
+def tum_phase(poses, rgbs, depths, dev, n_default: int) -> dict:
+    """Phase 12: the frames as a TUM directory through the port's own PNG
+    codec, loader, run_tum and CLI (see the module docstring). Every check
+    that fails calls fail(); returns the numbers to print."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.graph.g2o_io import read_g2o
+    from rgbdslam_v2_tpu_torch.io import TumDataset, TumLoader, save_as_tum_dataset
+    from rgbdslam_v2_tpu_torch.io.png import FILTER_PAETH
+    from rgbdslam_v2_tpu_torch.io.pointcloud import read_pcd
+    from rgbdslam_v2_tpu_torch.io.tum import LOADER_THREADS, read_trajectory_file
+    from rgbdslam_v2_tpu_torch.mapping import VoxelMap
+    from rgbdslam_v2_tpu_torch.mapping.octree_io import read_color_octree
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    n = len(rgbs)
+    out = {}
+    # what TumDataset.load gives for these frames: the u16 counts as meters
+    meters = depths.astype(np.float32) / np.float32(5000.0)
+    with tempfile.TemporaryDirectory() as td:
+        root = Path(td)
+        # the port's writer (every row Up, deflate level 1), then the same
+        # frames as libpng writes them (adaptive filters, level 6)
+        tum, tum_a = root / "tum", root / "tum_adaptive"
+        t0 = time.perf_counter()
+        save_as_tum_dataset(tum, poses, rgbs, depths)
+        out["write_ms"] = 1e3 * (time.perf_counter() - t0) / n
+        shutil.copytree(tum, tum_a)
+        ds, ds_a = TumDataset.open(tum), TumDataset.open(tum_a)
+
+        def write_adaptive(i):
+            for k, img in ((1, rgbs[i]), (3, depths[i])):
+                (tum_a / ds_a.pairs[i][k]).write_bytes(adaptive_png(img))
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            list(ex.map(write_adaptive, range(n)))
+        out["write_adaptive_ms"] = 1e3 * (time.perf_counter() - t0) / n
+        stamps = ds.timestamps()
+        out["png_mb"], out["decode"], out["loader_fps"] = {}, {}, {}
+        for name, d in (("up", ds), ("adaptive", ds_a)):
+            out["png_mb"][name] = sum(f.stat().st_size for f in d.root.rglob("*.png")) / 2**20
+            # every frame decodes to its rendered bytes (C unfilter, one thread)
+            dec = out["decode"][name] = decode_split(d, n, rgbs, depths)
+            if dec["bad"] or len(d) != n:
+                fail(f"TUM round trip ({name} filters): {len(dec['bad'])} of {n} frames decode "
+                     f"unequal ({dec['bad'][:5]}), {len(d)} pairs")
+            dec["numpy_unfilter_ms"] = unfilter_check(
+                d, min(UNFILTER_FRAMES if name == "up" else UNFILTER_FRAMES_ADAPTIVE, n))
+            t0 = time.perf_counter()
+            with TumLoader(d) as loader:
+                k = sum(1 for _ in loader)
+            out["loader_fps"][name] = k / (time.perf_counter() - t0)
+        if out["decode"]["adaptive"]["filters"][FILTER_PAETH] == 0:
+            fail(f"adaptive PNGs hold no Paeth rows: {out['decode']['adaptive']['filters']}")
+        out["loader_threads"] = LOADER_THREADS
+        ds, tum = ds_a, tum_a  # the CLI reads what libpng writes
+
+        # the CLI, in process: bench.py's make_pipe, the verify recipe's outputs
+        res = root / "out"
+        detect.reset_launches()
+        alignment.reset_launches()
+        registration.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        code, text, pipe = run_cli(["run", "--tum-dir", tum, "--out", res, "--evaluate",
+                                    "--save-clouds", "--save-octomap", "--save-g2o",
+                                    "--save-features", *make_pipe_flags()])
+        out["cli_s"] = time.perf_counter() - t0
+        out["launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if code != 0 or pipe is None:
+            fail(f"rgbdslam-torch run exited {code}: {text[-2000:]}")
+        mgr = pipe.manager
+        report = json.loads((res / "estimate_report.json").read_text())
+        out["ate"] = [report["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
+        out["stats"] = st = report["statistics"]
+        out["save_ms"] = pipe.save_ms
+        replay = pipe.group_syncs["replay"]
+        out["replay_groups"] = len(replay)
+        out["replay_syncs"] = sum(len(x) for x, *_ in replay)
+        out["replay_idle"] = sum(i for *_, (_, i) in replay)
+        out["replay_waits"] = sum(w for *_, (w, _) in replay)
+        if out["launches"][0] != n or out["launches"][1] != n - 1:
+            fail(f"TUM entry: detect launched {out['launches'][0]}, refine "
+                 f"{out['launches'][1]} times for {n} frames")
+        if not all(np.isfinite(out["ate"])) or out["ate"][4] > ATE_L4_MAX:
+            fail(f"TUM entry ATE {out['ate']}: not finite or L4 above {ATE_L4_MAX} m")
+        # the same frames through run_arrays, the same configuration
+        ref = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+        ref.run_arrays(rgbs, meters, stamps)
+        ref.evaluation_protocol(root / "ref", gt_stamps=list(ds.groundtruth[:, 0]),
+                                gt_xyz=ds.groundtruth[:, 1:4])
+        # per level: the optimizer's float index_add_ are atomic adds on the
+        # card, so two runs of one optimize may differ in the last bits
+        out["traj_diff"] = [
+            float(np.abs(read_trajectory_file(res / f"estimate_iteration_{lvl}.txt")
+                         - read_trajectory_file(root / "ref" / f"estimate_iteration_{lvl}.txt"))
+                  .max()) for lvl in range(5)]
+        out["pose_diff"] = float(np.abs(mgr.poses() - ref.manager.poses()).max())
+        if max(out["traj_diff"]) > 1e-5 or out["pose_diff"] > 1e-5:
+            fail(f"TUM entry against run_arrays: trajectory files differ by "
+                 f"{out['traj_diff']}, poses by {out['pose_diff']:.3e} (limit 1e-5)")
+        # every output parses with the port's readers
+        pts, cols = read_pcd(res / "cloud.pcd")
+        centers, _, _, _ = read_color_octree(res / "map.ot")
+        g_poses, g_fixed, g_edges = read_g2o(res / "graph.g2o")
+        with np.load(res / "features.npz") as f:
+            n_feat = int(f["positions"].shape[0])
+        n_valid = int(mgr.store.kp_valid[: mgr.n_nodes].sum())
+        out["outputs"] = dict(cloud_points=len(pts), occupied=len(centers),
+                              vertices=len(g_poses), g2o_edges=len(g_edges), features=n_feat,
+                              valid_keypoints=n_valid)
+        if (len(g_poses) != mgr.n_nodes or len(g_edges) != st["active_edges"]
+                or n_feat != n_valid or not len(centers) or not len(pts)
+                or not np.isfinite(pts).all()):
+            fail(f"TUM entry outputs: {out['outputs']}, nodes {mgr.n_nodes}, active edges "
+                 f"{st['active_edges']}")
+        code, text, _ = run_cli(["ate", res / "estimate_iteration_4.txt", tum / "groundtruth.txt"])
+        out["ate_cli"] = json.loads(text)["rmse"] if code == 0 else float("nan")
+        # the file holds positions to 1e-7 m: a few 1e-8 m apart
+        if not abs(out["ate_cli"] - out["ate"][4]) <= 1e-6:
+            fail(f"ate subcommand {out['ate_cli']} against the report's L4 {out['ate'][4]}")
+
+        # the voxel map: node clouds on the card and on the CPU
+        maps = {"cuda": VoxelMap(pipe.map_config(), device=dev),
+                "cpu": VoxelMap(pipe.map_config(), device="cpu")}
+        ms = []
+        for nid in np.linspace(0, mgr.n_nodes - 1, VOXEL_NODES).astype(int):
+            cloud = [t.cpu() for t in pipe._node_world_cloud(int(nid))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps["cuda"].insert_cloud(*cloud)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            maps["cpu"].insert_cloud(*cloud)
+        out["voxel_insert_ms"] = statistics.median(ms)
+        out["voxel_differ"] = {
+            k: int((getattr(maps["cuda"], k).cpu() != getattr(maps["cpu"], k))
+                   .reshape(-1, 3 if k == "rgb_sum" else 1).any(-1).sum())
+            for k in ("logodds", "rgb_sum", "hits")}
+        out["voxels_hit"] = int((maps["cpu"].hits > 0).sum())
+        if any(out["voxel_differ"].values()):
+            fail(f"voxel map: card and CPU differ in {out['voxel_differ']} voxels")
+        del maps, pipe, mgr, ref
+
+        # the default configuration through the CLI
+        detect.reset_launches()
+        registration.reset_launches()
+        alignment.reset_launches()
+        t0 = time.perf_counter()
+        code, text, dpipe = run_cli(["run", "--tum-dir", tum, "--out", root / "default",
+                                     "--evaluate", "--max-frames", n_default])
+        out["default_s"] = time.perf_counter() - t0
+        out["default_launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
+        if code != 0:
+            fail(f"rgbdslam-torch run (default configuration) exited {code}: {text[-2000:]}")
+        rep = json.loads((root / "default" / "estimate_report.json").read_text())
+        out["default_ate"] = [rep["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
+        out["default_stats"] = rep["statistics"]
+        out["default_fps"] = rep["fps"]
+        del dpipe
+        if not all(np.isfinite(out["default_ate"])) or out["default_ate"][4] > DEFAULT_ATE_L4_MAX:
+            fail(f"default configuration through the CLI: ATE {out['default_ate']} (L4 limit "
+                 f"{DEFAULT_ATE_L4_MAX})")
+
+        # the checkpoint: save, load into a fresh pipeline, both go on.
+        # Without the online optimize the poses must be equal; with it (every
+        # optimizer_skip_step frames, the cadence restored from the file) its
+        # atomic adds on the card let the two differ in the last bits
+        out["checkpoint"] = {}
+        if n >= CHECKPOINT_AT + CHECKPOINT_MORE:
+            for name, limit, over in (
+                    ("no_optimize", 0.0,
+                     dict(optimizer_skip_step=10 * (CHECKPOINT_AT + CHECKPOINT_MORE))),
+                    ("optimize", 1e-5, {})):
+                a = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
+                sl = slice(0, CHECKPOINT_AT)
+                a.run_arrays(rgbs[sl], depths[sl], stamps[sl])
+                t0 = time.perf_counter()
+                a.manager.save_state(root / "state.npz")
+                save_s = time.perf_counter() - t0
+                mb = (root / "state.npz").stat().st_size / 2**20
+                b = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
+                t0 = time.perf_counter()
+                b.manager.load_state(root / "state.npz")
+                load_s = time.perf_counter() - t0
+                optimizes, optimize = [], b.manager.optimize
+                b.manager.optimize = lambda *x, **kw: optimizes.append(1) or optimize(*x, **kw)
+                sl = slice(CHECKPOINT_AT, CHECKPOINT_AT + CHECKPOINT_MORE)
+                for pipe in (a, b):
+                    pipe.run_arrays(rgbs[sl], depths[sl], stamps[sl])
+                diff = float(np.abs(a.manager.poses() - b.manager.poses()).max())
+                same = a.manager.statistics() == b.manager.statistics()
+                ck = out["checkpoint"][name] = dict(
+                    save_s=save_s, load_s=load_s, mb=mb, diff=diff, same_stats=same,
+                    limit=limit, optimizes=len(optimizes),
+                    nodes=(a.manager.n_nodes, b.manager.n_nodes))
+                del a, b
+                if (not diff <= limit or (limit == 0.0 and not same) or len(set(ck["nodes"])) != 1
+                        or (ck["optimizes"] > 0) != (name == "optimize")):
+                    fail(f"checkpoint continuation ({name}): poses differ by {diff:.3e} "
+                         f"(limit {limit}), statistics equal {same}, nodes {ck['nodes']}, "
+                         f"online optimizes after the load {ck['optimizes']}")
+
+        # fps: the TUM entry (both directories) against run_arrays on the
+        # same frames, alternating; per run the wall, the main thread's CPU
+        # and the whole process's CPU ms a frame (every thread: loader,
+        # encode-ahead, torch's)
+        fps = {"tum_up": [], "tum_adaptive": [], "arrays": []}
+        out["host"] = {k: [] for k in fps}
+        out["loader_waits"] = {"tum_up": [], "tum_adaptive": []}
+        for kind in ("tum_up", "tum_adaptive", "arrays") * 2:
+            pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+            torch.cuda.synchronize()
+            t0, c0, p0 = time.perf_counter(), time.thread_time(), time.process_time()
+            if kind == "arrays":
+                pipe.run_arrays(rgbs, meters, stamps)
+            else:
+                out["loader_waits"][kind].append(
+                    pipe.run_tum(ds if kind == "tum_adaptive" else TumDataset.open(root / "tum")))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fps[kind].append(n / wall)
+            out["host"][kind].append(tuple(1e3 * x / n for x in (
+                wall, time.thread_time() - c0, time.process_time() - p0)))
+            del pipe
+        out["fps"] = fps
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=520)
@@ -842,7 +1254,7 @@ def main() -> None:
     smi_line = smi.stdout.strip().splitlines()[0]
     phase(smi_line)
     t0 = time.perf_counter()
-    libs = ["detect_corners", "kabsch", "compact_ingest"]
+    libs = ["detect_corners", "kabsch", "compact_ingest", "png_unfilter"]
     lib_paths = backend.build_kernel_libraries(libs)
     for name in libs:
         backend.load_kernel_library(name)
@@ -851,8 +1263,9 @@ def main() -> None:
     cxx = backend.host_compiler()
     host_cxx = " ".join([Path(cxx[0]).name, *cxx[1:]])
     phase(f"[1 device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
-          f"| CUDA {torch.version.cuda} | detect_corners and kabsch (nvcc) and the host wire "
-          f"encoder native/compact_ingest.cpp ({host_cxx}) built in parallel in "
+          f"| CUDA {torch.version.cuda} | detect_corners and kabsch (nvcc), the host wire "
+          f"encoder native/compact_ingest.cpp and the PNG unfilter csrc/png_unfilter.cpp "
+          f"({host_cxx}) built in parallel in "
           f"{build_s:.2f} s ({', '.join(p.name for p in lib_paths)})")
 
     # ---- 2. kernel against plain: the frame's 4 levels, one launch ------
@@ -1428,6 +1841,67 @@ def main() -> None:
     if not np.isfinite(pipe.manager.poses()).all():
         fail("default path with use_icp: non-finite poses")
     del pipe
+
+    # ---- 12. the TUM entry point: PNG codec, loader, run_tum, CLI --------
+    torch.cuda.empty_cache()
+    phase(f"[12 tum] the {args.frames} bench frames as a TUM directory: PNG codec, loader, "
+          f"run_tum and the rgbdslam-torch CLI")
+    tm = tum_phase(poses, rgbs, depths, dev, n_default)
+    launches_phase["tum"] = tm["launches"]
+    launches_phase["tum_default"] = tm["default_launches"]
+    st = tm["stats"]
+    for name, how in (("up", "by the port's PNG writer (every row Up, deflate level 1)"),
+                      ("adaptive", "as libpng writes them (adaptive filters, zlib level 6)")):
+        dec = tm["decode"][name]
+        msd = dec["ms"]
+        wms = tm["write_ms" if name == "up" else "write_adaptive_ms"]
+        phase(f"[12 tum] {args.frames} bench frames written as a TUM directory {how}: "
+              f"{wms:.2f} ms a frame on 8 threads, {tm['png_mb'][name]:.1f} MiB, rows by filter "
+              f"None/Sub/Up/Average/Paeth {'/'.join(map(str, dec['filters']))}; all decode "
+              f"equal to the rendered frames (RGB bytes, depth u16); decode ms a frame (RGB + "
+              f"depth PNG, one thread): {msd['total']:.2f} = read {msd['read']:.2f} + chunks, "
+              f"CRCs and inflate {msd['inflate']:.2f} + C unfilter {msd['unfilter']:.2f} + "
+              f"image {msd['image']:.2f}; numpy unfilter {dec['numpy_unfilter_ms']:.2f} "
+              f"({UNFILTER_FRAMES if name == 'up' else UNFILTER_FRAMES_ADAPTIVE} frames, equal "
+              f"to C); TumLoader ({tm['loader_threads']} threads) "
+              f"{tm['loader_fps'][name]:.1f} frames/s")
+    phase(f"[12 tum] rgbdslam-torch run --evaluate --save-clouds --save-octomap --save-g2o "
+          f"--save-features on the adaptive directory, make_pipe: ATE L0..L4 "
+          f"{' / '.join(f'{a:.4f}' for a in tm['ate'])} m (limit L4 <= {ATE_L4_MAX}), ate "
+          f"subcommand {tm['ate_cli']:.6f}; nodes {st['nodes']}, active edges "
+          f"{st['active_edges']}; detect launches {tm['launches'][0]}, refine "
+          f"{tm['launches'][1]}, Kabsch {tm['launches'][2]}; against run_arrays on the same "
+          f"frames (the decoded meters): trajectory files L0..L4 {' / '.join(f'{d:.1e}' for d in tm['traj_diff'])}, "
+          f"poses {tm['pose_diff']:.3e} (limit 1e-5); outputs {tm['outputs']}; save_clouds {tm['save_ms']['save_clouds']:.0f} ms, "
+          f"save_octomap {tm['save_ms']['save_octomap']:.0f} ms; whole command "
+          f"{tm['cli_s']:.1f} s; peak device memory {tm['peak_gib']:.2f} GiB; replayed groups "
+          f"{tm['replay_groups']}, synchronizing calls in them {tm['replay_syncs']}, waits for "
+          f"a copy not landed {tm['replay_waits']} ({tm['replay_idle']} left the card idle)")
+    phase(f"[12 tum] voxel map ({VOXEL_NODES} node clouds, 8.4 M voxels): card against CPU "
+          f"voxels differing {tm['voxel_differ']}, {tm['voxels_hit']} voxels hit; card insert "
+          f"median {tm['voxel_insert_ms']:.2f} ms a cloud (host clock, synchronized)")
+    dst = tm["default_stats"]
+    phase(f"[12 tum] default configuration through the CLI, {n_default} frames: ATE L0..L4 "
+          f"{' / '.join(f'{a:.4f}' for a in tm['default_ate'])} m (limit L4 <= "
+          f"{DEFAULT_ATE_L4_MAX}); {tm['default_fps']:.2f} fps; nodes {dst['nodes']}, "
+          f"keyframes {dst['keyframes']}; detect launches {tm['default_launches'][0]}, refine "
+          f"{tm['default_launches'][1]}; whole command {tm['default_s']:.1f} s")
+    for name, ck in tm["checkpoint"].items():
+        phase(f"[12 tum] checkpoint after {CHECKPOINT_AT} frames ({name.replace('_', ' ')}): "
+              f"save_state {ck['save_s']:.2f} s ({ck['mb']:.1f} MiB), load_state "
+              f"{ck['load_s']:.2f} s; {CHECKPOINT_MORE} more frames into both, "
+              f"{ck['optimizes']} online optimizes in the loaded one: max pose difference "
+              f"{ck['diff']:.3e} (limit {ck['limit']}), statistics equal {ck['same_stats']}")
+    host = {k: [" / ".join(f"{x:.2f}" for x in run) for run in v] for k, v in tm["host"].items()}
+    phase(f"[12 tum] fps, {args.frames} frames, alternating: run_tum on the Up directory "
+          f"{' / '.join(f'{x:.2f}' for x in tm['fps']['tum_up'])}, on the adaptive directory "
+          f"{' / '.join(f'{x:.2f}' for x in tm['fps']['tum_adaptive'])}, run_arrays "
+          f"{' / '.join(f'{x:.2f}' for x in tm['fps']['arrays'])}; run_tum waited for the "
+          f"loader on " + ", ".join(
+              f"{k[4:]} " + " / ".join(f"{w['waits']} frames ({1e3 * w['wait_s']:.1f} ms)"
+                                       for w in v) for k, v in tm["loader_waits"].items())
+          + "; host ms a frame, wall / main thread CPU / process CPU: "
+          + ", ".join(f"{k} {' and '.join(v)}" for k, v in host.items()))
 
     marks = sorted(_PHASE_S.items(), key=lambda kv: kv[1]) + [("end", time.perf_counter())]
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s; seconds from each phase's "

@@ -10,8 +10,9 @@ precision) plus the TPU-backend gate in ``models/orb.py``. Here:
   matching the reference's "highest" float32 precision.
 * :func:`load_kernel_library` is the one place that compiles a native
   source into a plain-C shared library and loads it with ``ctypes``: a
-  ``csrc/*.cu`` kernel source with ``nvcc``, or the host wire encoder
-  ``native/compact_ingest.cpp`` (``HOST_SOURCES``) with ``g++ -O3
+  ``csrc/*.cu`` kernel source with ``nvcc``, or a host source
+  (``HOST_SOURCES``: the wire encoder ``native/compact_ingest.cpp`` and the
+  PNG unfilter ``csrc/png_unfilter.cpp``) with ``g++ -O3
   -ffp-contract=off`` (``nvcc -x c++`` where there is no ``g++``). The
   build is keyed by a hash of the source, the compiler and its flags,
   lands in the git-ignored ``_build/`` directory beside this file (a
@@ -44,10 +45,12 @@ NVCC_FLAGS = [
 # float32 operation order and, without FMA contraction, rounds identically;
 # kabsch.cu computes in double against a float64 reference and contracts
 SOURCE_FLAGS = {"detect_corners": ["--fmad=false"]}
-# host sources outside csrc/, built for the CPU: the wire encoder shared
-# with the JAX package (compiled alone, unedited; its chroma must round as
-# numpy's float32 expression does, so no FMA contraction)
-HOST_SOURCES = {"compact_ingest": _PKG_DIR.parent / "native" / "compact_ingest.cpp"}
+# host sources, built for the CPU: the wire encoder shared with the JAX
+# package (compiled alone, unedited; its chroma must round as numpy's
+# float32 expression does, so no FMA contraction) and the PNG row unfilter
+# of io/png.py
+HOST_SOURCES = {"compact_ingest": _PKG_DIR.parent / "native" / "compact_ingest.cpp",
+                "png_unfilter": CSRC_DIR / "png_unfilter.cpp"}
 HOST_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs: dict = {}

@@ -137,8 +137,10 @@ def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ R.transpose(-1, -2) + t[..., None, :]
 
 
-def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) -> (..., 4) quaternion (x, y, z, w), w >= 0 (Shepperd)."""
+def rot_to_quat(R: torch.Tensor, norm=None) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) quaternion (x, y, z, w), w >= 0 (Shepperd),
+    normalized by `norm` (torch.linalg.norm by default)."""
+    norm = norm or (lambda q: torch.linalg.norm(q, dim=-1, keepdim=True))
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
@@ -163,9 +165,22 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     idx = torch.argmax(pivots, dim=-1)
     qs = torch.stack([q_w, q_x, q_y, q_z], dim=-2)  # (..., 4, 4)
     q = torch.gather(qs, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
-    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    q = q / norm(q)
     sign = torch.where(q[..., 3:4] < 0, -1.0, 1.0)
     return q * sign
+
+
+def norm_fma(x: torch.Tensor) -> torch.Tensor:
+    """The Euclidean norm over the last axis (kept) as the JAX package's
+    float32 ``jnp.linalg.norm`` rounds on the CPU: XLA accumulates the
+    squares in order with fused multiply-adds. Each float32 square is exact
+    in float64, so a float64 accumulation rounded to float32 a step gives the
+    fused result (but for a double rounding, 1 in ~2^29)."""
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for k in range(x.shape[-1]):
+        xk = x[..., k].double()
+        acc = (acc.double() + xk * xk).float()
+    return torch.sqrt(acc)[..., None]
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
@@ -185,8 +200,15 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def tum_to_pose(t: torch.Tensor, q_xyzw: torch.Tensor) -> torch.Tensor:
+    """Translation (..., 3) and quaternion xyzw (..., 4) -> (..., 4, 4)."""
+    return from_rt(quat_to_rot(q_xyzw), t)
+
+
 def pose_to_tum(T: torch.Tensor):
-    """(..., 4, 4) -> ((..., 3) translation, (..., 4) quaternion xyzw)."""
+    """(..., 4, 4) -> ((..., 3) translation, (..., 4) quaternion xyzw); the
+    quaternion normalized by norm_fma, so the trajectory and g2o files the
+    port writes hold the JAX package's digits."""
     R, t = to_rt(T)
-    return t, rot_to_quat(R)
+    return t, rot_to_quat(R, norm_fma)
 

@@ -2,8 +2,8 @@
 
 Port of the yc12 and ydct parts of ``rgbdslam_v2_tpu/graph/manager.py``:
 
-* host side: ``compact_frame`` (its yc12 branch with gray_bits 8 and its
-  ydct branch), through the native C encoder (``io/native_compact.py``)
+* host side: ``maybe_scale_depth``, ``compact_frame`` (its yc12 branch
+  with gray_bits 8 and its ydct branch), through the native C encoder (``io/native_compact.py``)
   as the JAX package does, with the numpy encoder as the plain version and
   the fallback for layouts the C code refuses: ``compact_frame_numpy``,
   ``_d10_lut``/``_pack10``, ``_d12_lut``/``_pack12``, ``_chroma_mult``;
@@ -90,6 +90,18 @@ def _pack10(q: np.ndarray) -> np.ndarray:
 def _chroma_mult(H: int, W: int, stride: int) -> int:
     cs = 4 * stride
     return 4 if (H % cs == 0 and W % cs == 0) else 2
+
+
+def maybe_scale_depth(depth, factor: float):
+    """depth_scaling_factor (reference misc.cpp:502, node.cpp:705): scale the
+    raw depth before the encoder quantizes it. u16 counts become float32
+    meters times factor; meters are multiplied by float32(factor)."""
+    if factor == 1.0 or depth is None:
+        return depth
+    depth = np.asarray(depth)
+    if depth.dtype == np.uint16:
+        return depth.astype(np.float32) * (factor / DEPTH_SCALE)
+    return depth * np.float32(factor)
 
 
 def compact_frame(rgb, depth, stride: int, depth_bits: int = 12,

@@ -11,9 +11,18 @@ the groups), ``_drain_pending`` (blocking or pipelined),
 the device work is in ``graph/rescue.py``),
 ``_inaffected_kernel``, ``_optimize_inaffected``, ``optimize``,
 ``prune_edges_above``, ``toggle_mapping``, ``delete_last_frame``,
-``clear_feature_information``, ``reset``, ``poses``, ``trajectory`` and
-``statistics``. Host bookkeeping and the per-frame decisions live in
-``graph/host_graph.py``.
+``clear_feature_information``, ``reset``, ``poses``, ``trajectory``,
+``statistics``, ``extract``, ``add_node``, ``sanity_check``,
+``memory_footprint``, ``save_state`` and ``load_state``; the host encode
+applies ``depth_scaling_factor`` (``maybe_scale_depth``). Host bookkeeping
+and the per-frame decisions live in ``graph/host_graph.py``.
+
+A checkpoint (``save_state``) keeps the JAX package's ``__meta__`` keys; the
+port's arrays carry their field names (``store_uv``, ``graph_poses``, ...),
+and its meta adds, under ``"port"``, what a continued run needs to go on
+exactly as the saved one would (the adapted FAST threshold, the RNG states,
+the starvation tracker, the optimize cadence). ``load_state`` also reads a
+checkpoint the JAX package saved (``interop.jax_checkpoint_arrays``).
 
 Two per-frame paths, chosen as in the JAX package:
 
@@ -50,6 +59,7 @@ Configuration outside the port raises NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 from typing import List, Optional
 
@@ -59,7 +69,9 @@ import torch
 from .. import backend
 from ..config import ParameterServer, default_params
 from ..core.camera import Intrinsics
-from ..models.orb import OrbExtractor
+from ..core.frames import Frame
+from ..models.orb import OrbExtractor, feature_depth_map
+from ..models.types import Keypoints
 from ..optim.pose_graph import (GraphState, edge_chi2, make_graph_state, optimize,
                                  resolve_solver)
 from ..ops import dct_wire
@@ -69,7 +81,7 @@ from .device_step import StepGraph, StepSummary, commit_node, group_views, pack_
 from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_edges,
                          const_position_edge, decide_matches, inaffected_subgraph,
                          is_redundant)
-from .ingest import compact_frame, prepare_and_extract
+from .ingest import compact_frame, maybe_scale_depth, prepare_and_extract
 from .node_store import NodeStore
 from .rescue import icp_rescue_body, retro_rescue
 
@@ -108,8 +120,6 @@ def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
         "global_loop_candidates": p["global_loop_candidates"] > 0,
         "g2o_transformation_refinement": p["g2o_transformation_refinement"] > 0,
         "use_robot_odom": p["use_robot_odom"] or p["use_robot_odom_only"],
-        "depth_scaling_factor": p["depth_scaling_factor"] != 1.0,
-        "octomap_online_creation": p["octomap_online_creation"],
         "start_paused": p["start_paused"],
         "cloud_creation_skip_step": cam.height % (2 * s) != 0 or cam.width % (2 * s) != 0,
     }
@@ -277,8 +287,26 @@ class GraphManager:
             p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits, self.dct)
 
     def encode(self, rgb, depth) -> np.ndarray:
-        """The host wire of one frame (yc12 or ydct, as configured)."""
+        """The host wire of one frame (yc12 or ydct, as configured), its
+        depth scaled by depth_scaling_factor first."""
+        depth = maybe_scale_depth(depth, self.params["depth_scaling_factor"])
         return compact_frame(rgb, depth, self.emm_stride, self.depth_bits, self.dct)
+
+    @torch.inference_mode()
+    def extract(self, frame: Frame) -> Keypoints:
+        """Keypoints of a full-resolution Frame (gray and depth) with the
+        current extractor, on this manager's device."""
+        dev = self.device
+        fdepth = feature_depth_map(frame.depth.to(dev), frame.valid.to(dev),
+                                   self.params["use_feature_min_depth"])
+        return self.extractor(frame.gray.to(dev), fdepth, self.cam)
+
+    def add_node(self, frame: Frame, timestamp: float,
+                 ground_truth_pose: Optional[np.ndarray] = None) -> bool:
+        """add_frame on a Frame's rgb and (clipped) depth."""
+        img = frame.rgb if frame.rgb.ndim == 3 else frame.gray
+        return self.add_frame(img.cpu().numpy(), frame.depth.cpu().numpy(), timestamp,
+                              ground_truth_pose)
 
     def add_frame(self, rgb, depth, timestamp: float,
                   ground_truth_pose: Optional[np.ndarray] = None, compact=None) -> bool:
@@ -921,6 +949,139 @@ class GraphManager:
         """clearFeatureInformation (node.cpp:1431): free a node's feature
         slots."""
         self.store.clear_features(int(node_id))
+
+    def sanity_check(self) -> List[str]:
+        """sanityCheck (graph_manager.cpp:1347): problems found, if any."""
+        self._drain_pending()
+        problems = []
+        poses = self.poses()
+        if not np.isfinite(poses).all():
+            problems.append("non-finite pose entries")
+        R = poses[:, :3, :3]
+        orth = np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max() if len(R) else 0.0
+        if orth > 1e-2:
+            problems.append(f"non-orthonormal rotations (max dev {orth:.2e})")
+        active = self.graph.edge_active.cpu().numpy()
+        for e in range(self.n_edges):
+            pair = self.host.edge_pairs[e]
+            if active[e] and pair is not None and max(pair) >= self.n_nodes:
+                problems.append(f"edge {e} references inactive node")
+        return problems
+
+    def memory_footprint(self) -> dict:
+        """getMemoryFootprint (node.cpp:1461): bytes of the node store and of
+        the graph on the device."""
+        self._drain_pending()
+
+        def nbytes(state):
+            return sum(t.numel() * t.element_size()
+                       for t in (getattr(state, f.name) for f in dataclasses.fields(state)))
+
+        return {"node_store_bytes": nbytes(self.store), "graph_bytes": nbytes(self.graph),
+                "nodes": self.n_nodes}
+
+    def save_state(self, path) -> None:
+        """Checkpoint the SLAM state into an .npz (a capability beyond the
+        reference, which has none): the JAX package's __meta__ keys, the
+        store and graph arrays by field name, and the port's run state."""
+        from ..interop import to_numpy
+
+        self._drain_pending()
+        h = self.host
+        arrays = {f"store_{k}": v for k, v in to_numpy(self.store).items()}
+        arrays.update({f"graph_{k}": v for k, v in to_numpy(self.graph).items()})
+        arrays["generator_state"] = self.generator.get_state().numpy()
+        if self._last_rescue is not None:
+            arrays["last_rescue_T"] = self._last_rescue[0].cpu().numpy()
+            arrays["last_rescue_ok"] = self._last_rescue[1].cpu().numpy()
+        meta = dict(
+            n_nodes=h.n_nodes, n_edges=h.n_edges, n_loop_edges=h.n_loop_edges,
+            n_seq_edges=h.n_seq_edges, timestamps=list(h.timestamps),
+            keyframes=list(h.keyframes), edge_types=list(h.edge_types),
+            edge_pairs=[None if q is None else list(q) for q in h.edge_pairs],
+            adjacency={str(k): sorted(v) for k, v in h.adjacency.items()},
+            edge_active_host=[int(x) for x in h.edge_active[: h.n_edges]],
+            nodes_opt_watermark=self._nodes_opt_watermark, kp_count0=self._kp_count0,
+            port=dict(
+                fast_threshold=self.extractor.fast_threshold,
+                contrast_ema=self._contrast_ema, starved_mode=self._starved_mode,
+                nodes_since_optimize=self.nodes_since_optimize,
+                clear_queue=list(h.clear_queue), host_rng=h.rng.bit_generator.state,
+                first_pose=np.asarray(self._first_pose, np.float64).tolist(),
+                mapping_enabled=self.mapping_enabled, n_icp_rescues=self.n_icp_rescues,
+                rescue_items=self.rescue_items,
+                last_rescue_node=None if self._last_rescue is None else self._last_rescue[2],
+            ),
+        )
+        np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
+
+    def load_state(self, path) -> None:
+        """Restore a checkpoint of save_state, or one the JAX package saved
+        (numbered leaves: interop.jax_checkpoint_arrays), into this
+        manager's tensors in place; the capacities must be equal. A JAX
+        checkpoint carries no run state: the extractor, RNGs and trackers
+        stay as they are."""
+        from ..interop import graph_from_numpy, jax_checkpoint_arrays, store_from_numpy
+
+        self._drain_pending()
+        self._pending, self._staged, self._pending_rescues = [], [], []
+        with np.load(path, allow_pickle=False) as data:
+            meta = json.loads(str(data["__meta__"]))
+            if "store_0" in data.files:
+                store, graph = jax_checkpoint_arrays(data)
+            else:
+                store = {f.name: data[f"store_{f.name}"] for f in dataclasses.fields(NodeStore)}
+                graph = {f.name: data[f"graph_{f.name}"] for f in dataclasses.fields(GraphState)}
+            extra = {k: data[k] for k in ("generator_state", "last_rescue_T", "last_rescue_ok")
+                     if k in data.files}
+        for state, loaded in ((self.store, store_from_numpy(store)),
+                              (self.graph, graph_from_numpy(graph))):
+            for f in dataclasses.fields(state):
+                dst, src = getattr(state, f.name), getattr(loaded, f.name)
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise ValueError(f"checkpoint {f.name} is {tuple(src.shape)} {src.dtype}, "
+                                     f"this manager holds {tuple(dst.shape)} {dst.dtype}")
+                dst.copy_(src)
+        h = self.host
+        h.n_nodes, h.n_edges = meta["n_nodes"], meta["n_edges"]
+        h.n_loop_edges, h.n_seq_edges = meta["n_loop_edges"], meta["n_seq_edges"]
+        h.timestamps = list(meta["timestamps"])
+        h.keyframes = list(meta["keyframes"])
+        h.edge_types = list(meta["edge_types"])
+        h.edge_pairs = [None if q is None else tuple(q) for q in meta["edge_pairs"]]
+        h.adjacency = {int(k): set(v) for k, v in meta["adjacency"].items()}
+        h.edge_active[:] = False
+        h.edge_active[: h.n_edges] = np.asarray(meta["edge_active_host"], bool)
+        h.edge_i[:], h.edge_j[:] = -1, -1
+        for e, pair in enumerate(h.edge_pairs):
+            if pair is not None:
+                h.edge_i[e], h.edge_j[e] = pair
+        self._nodes_opt_watermark = meta["nodes_opt_watermark"]
+        self._kp_count0 = meta["kp_count0"]
+        self._loc_poses_host = None
+        run = meta.get("port")
+        if run is None:
+            return
+        self.extractor = dataclasses.replace(self.extractor,
+                                             fast_threshold=run["fast_threshold"])
+        self._contrast_ema, self._starved_mode = run["contrast_ema"], run["starved_mode"]
+        self.nodes_since_optimize = run["nodes_since_optimize"]
+        h.clear_queue = list(run["clear_queue"])
+        h.rng.bit_generator.state = run["host_rng"]
+        self._first_pose = np.asarray(run["first_pose"], np.float32)
+        self.mapping_enabled = run["mapping_enabled"]
+        self.n_icp_rescues, self.rescue_items = run["n_icp_rescues"], run["rescue_items"]
+        state = torch.from_numpy(extra["generator_state"])
+        if state.numel() == self.generator.get_state().numel():
+            self.generator.set_state(state)
+        else:  # saved on another device type: its RNG state does not fit here
+            logger.warning("checkpoint RNG state is of another device; RANSAC draws "
+                           "go on from this manager's generator")
+        self._last_rescue = None
+        if run["last_rescue_node"] is not None:
+            self._last_rescue = (torch.from_numpy(extra["last_rescue_T"]).to(self.device),
+                                 torch.from_numpy(extra["last_rescue_ok"]).to(self.device),
+                                 run["last_rescue_node"])
 
     def statistics(self) -> dict:
         self._drain_pending()

@@ -7,11 +7,17 @@ back.
   plane has no counterpart and is dropped.
 * ``GraphState``, ``Keypoints``: field by field, dtypes unchanged.
 * ``SyntheticWorld``: textures, boxes, extent.
+* A checkpoint the JAX package's ``GraphManager.save_state`` wrote: its
+  arrays are numbered leaves, ``store_i`` and ``graph_i``, in the order of
+  the JAX NamedTuples' fields (``graph/node_store.py`` ``NodeStore``,
+  ``optim/pose_graph.py`` ``GraphState``), written down here as
+  ``JAX_STORE_FIELDS`` and ``JAX_GRAPH_FIELDS``. ``emm_zs`` is leaf 6, so
+  the later store leaves sit one index above the port's field positions.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +26,22 @@ from .graph.node_store import NodeStore
 from .io.synthetic import SyntheticWorld
 from .models.types import Keypoints
 from .optim.pose_graph import GraphState
+
+
+# the JAX NamedTuples' field orders (= their leaf order in a checkpoint)
+JAX_STORE_FIELDS = ("uv", "xyz", "desc", "kp_valid", "depth", "emm_lohi", "emm_zs", "color")
+JAX_GRAPH_FIELDS = ("poses", "node_active", "node_fixed", "edge_i", "edge_j", "edge_meas",
+                    "edge_info", "edge_active")
+
+
+def jax_checkpoint_arrays(data) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """The numbered leaves of a JAX checkpoint (a mapping such as an
+    ``np.load`` of it) -> (store arrays, graph arrays) by field name; the
+    store's still hold emm_zs and uint32 pools (store_from_numpy drops and
+    reinterprets them)."""
+    store = {name: np.asarray(data[f"store_{i}"]) for i, name in enumerate(JAX_STORE_FIELDS)}
+    graph = {name: np.asarray(data[f"graph_{i}"]) for i, name in enumerate(JAX_GRAPH_FIELDS)}
+    return store, graph
 
 
 def _fields(obj) -> Dict[str, Any]:

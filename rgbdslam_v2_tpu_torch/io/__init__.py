@@ -1,2 +1,2 @@
-from .tum import associate, write_trajectory  # noqa: F401
-from .synthetic import SyntheticWorld, render_sequence  # noqa: F401
+from .tum import TumDataset, TumLoader, associate, write_trajectory  # noqa: F401
+from .synthetic import SyntheticWorld, render_sequence, save_as_tum_dataset  # noqa: F401

@@ -11,6 +11,8 @@ from a ``torch.Generator``: the same distributions as the JAX draws,
 different values; :func:`dropout_mask` takes the draws as arguments, so a
 test can give it the JAX package's. :func:`dark_stretch` is the darkening
 of ``tools/hard_sequences.py``'s dark-stretch sequence.
+:func:`save_as_tum_dataset` writes a sequence as a TUM directory through
+the port's PNG writer (``io/png.py``).
 """
 from __future__ import annotations
 
@@ -268,3 +270,38 @@ def render_sequence(world: SyntheticWorld, n_frames: int, seed: int = 1,
         rgbs.append((rgb * 255).to(torch.uint8).cpu().numpy())
         depths.append(depth.cpu().numpy())
     return poses.cpu().numpy(), np.concatenate(rgbs, 0), np.concatenate(depths, 0)
+
+
+def save_as_tum_dataset(out_dir, poses, rgbs, depths, fps: float = 30.0):
+    """Write a sequence as a TUM dataset directory: rgb/ and depth/ PNGs
+    through the port's PNG writer (frames on several threads: deflate
+    releases the GIL), rgb.txt, depth.txt and groundtruth.txt, with the JAX
+    package's stamps (1e9 + i / fps) and file names. Depth in float meters
+    is written as the JAX package writes it, (d * 5000) truncated to u16;
+    u16 depth (TUM counts) is written as it is. Returns the stamps."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from .png import write_png
+    from .tum import write_trajectory
+
+    out = Path(out_dir)
+    (out / "rgb").mkdir(parents=True, exist_ok=True)
+    (out / "depth").mkdir(parents=True, exist_ok=True)
+    stamps = [1.0e9 + i / fps for i in range(len(rgbs))]
+    names = [(f"rgb/{ts:.6f}.png", f"depth/{ts:.6f}.png") for ts in stamps]
+
+    def write(i):
+        d = np.asarray(depths[i])
+        write_png(out / names[i][0], np.asarray(rgbs[i], np.uint8))
+        write_png(out / names[i][1],
+                  d if d.dtype == np.uint16 else (d * 5000.0).astype(np.uint16))
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(write, range(len(rgbs))))
+    for kind, k in (("rgb", 0), ("depth", 1)):
+        lines = ["# synthetic"] + [f"{ts:.6f} {n[k]}" for ts, n in zip(stamps, names)]
+        (out / f"{kind}.txt").write_text("\n".join(lines) + "\n")
+    write_trajectory(out / "groundtruth.txt", stamps, poses, comment="synthetic gt")
+    return stamps

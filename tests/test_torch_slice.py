@@ -75,7 +75,7 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 @pytest.mark.parametrize("override", [
     {"use_robot_odom": True}, {"tpu_gray_bits": 6}, {"tpu_ingest_format": "raw"},
-    {"tpu_wire_delta": True, "tpu_frames_per_step": 2}, {"depth_scaling_factor": 2.0},
+    {"tpu_wire_delta": True, "tpu_frames_per_step": 2}, {"start_paused": True},
     {"global_loop_candidates": 2}, {"tpu_wire_delta": True},
     {"feature_extractor_type": "SIFT"}, {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
     {"g2o_transformation_refinement": 2}, {"tpu_frames_per_step": 3},
@@ -115,6 +115,8 @@ def test_ydct_outside_its_domain_raises(override):
     {"tpu_drain_pipelined": True},
     # the GICP rescue, on the keep-all fast path and on the host-decision path
     {"use_icp": True}, {"use_icp": True, "keep_all_nodes": False, "icp_variant": "icp"},
+    # the TUM entry point's options
+    {"depth_scaling_factor": 2.0}, {"octomap_online_creation": True},
 ])
 def test_config_inside_the_port_builds(override):
     pipe = SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")
