@@ -162,11 +162,26 @@ and prints no result:
      run_arrays fps, alternating, with the loader's waits and each run's
      wall, main-thread CPU and process CPU ms a frame.
 
+ 13. the feature families on make_pipe (FAMILY_PARAMS), on the bench
+     frames: SIFTGPU at the reference's published evaluation settings over
+     SIFT_FRAMES frames: fps, ATE L0..L4 (L4 at most 1.5 x SIFT_L4_JAX, the
+     JAX package's on the same frames), graph, launches (detect 0, refine
+     frames - 1), 0 syncs in replayed groups, peak memory; the SIFT
+     extractor's device ms and activities on one frame against its bound
+     (sift_extractor_bound), and the whole step's a frame from a captured
+     group replayed; 4 frames a step replayed against 1 eager on
+     EQUAL_FRAMES frames (poses equal exactly: the histograms are
+     fixed-order sums). BRISK and FREAK over FAMILY_FRAMES frames: L4 at
+     most max(2 x, + 0.005 m) phase 6's ORB L4 (tests/test_slam_e2e.py's
+     bound), detect launches = frames, refine = frames - 1. ORB with bf16
+     and float32 descriptor stores, every step eager, DTYPE_FRAMES frames:
+     poses and statistics equal to the int8 store's.
+
 Before the last line it prints one JSON object with the kernels' measured
 numbers (launches from phase 6's run, the bench configuration, and from
 each later phase's; the Kabsch kernel's are 0 there, its refits having
 moved into the refine kernel); the last line is {"ok": true, "device":
-{...}}. --frames N (at least 23) shortens phases 3-12 to N frames each.
+{...}}. --frames N (at least 23) shortens phases 3-13 to N frames each.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -175,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import shutil
 import statistics
@@ -306,6 +322,32 @@ MAKE_PIPE = dict(
     tpu_ingest_format="ydct", tpu_dct_quality="2.7", tpu_gray_bits=8, tpu_depth_bits=10,
     tpu_frames_per_step=4, tpu_encode_ahead=True,
 )
+
+
+# phase 13: the feature families on make_pipe. SIFTGPU at the reference's
+# published evaluation settings (test/README: SIFTGPU, 600 features, 8
+# candidates, RANSAC 100, ratio 0.9, RootSIFT; SURVEY.md section 6)
+FAMILY_PARAMS = {
+    "SIFTGPU": dict(feature_detector_type="SIFTGPU", feature_extractor_type="SIFTGPU",
+                    ransac_iterations=100, nn_distance_ratio=0.9,
+                    squareroot_descriptor_space=True),
+    "BRISK": dict(feature_extractor_type="BRISK"),
+    "FREAK": dict(feature_extractor_type="FREAK"),
+}
+
+
+# The JAX package's protocol L4 with FAMILY_PARAMS["SIFTGPU"] on make_pipe
+# over the bench's first 520 frames rendered by the JAX package, on the CPU
+# (tools/make_pipe_same_frames.py --frames 520 --seeds 0 --family SIFTGPU
+# --packages jax). Phase 13 holds the port to 1.5 x it on its own renders of
+# the same frames (the renderers agree within 1/255 and 1e-4 m).
+# Both packages track this orbit far worse with SIFT than with ORB (the JAX
+# package reads L0 0.4642, L4 0.1475 m, 957 sequential + 71 loop edges;
+# ROADMAP F16).
+SIFT_L4_JAX = 0.1475  # metres
+SIFT_FRAMES = 520  # phase 13's SIFTGPU run
+FAMILY_FRAMES = 260  # phase 13's BRISK and FREAK runs
+DTYPE_FRAMES = 60  # phase 13's descriptor-store runs (bf16, float32 against int8)
 
 
 def make_pipe_params(**over):
@@ -491,6 +533,11 @@ def bench_config_run(poses, rgbs, depths, stamps, dev, keep=False, **over) -> di
     from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
     frames = len(rgbs)
+    # earlier runs' pipelines are cyclic garbage until a collection frees
+    # their device tensors (torch.cuda.graph collects before a capture):
+    # collect first, so the peak is this run's
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     detect.reset_launches()
     alignment.reset_launches()
@@ -1211,6 +1258,123 @@ def tum_phase(poses, rgbs, depths, dev, n_default: int) -> dict:
     return out
 
 
+def sift_extractor_bound(ext, H: int, W: int) -> tuple:
+    """The least time the SIFT extractor of one HxW frame could take on an
+    H100: (ms, "bytes" or "operations"). Bytes: the grey image and the
+    feature depth read once, the K keypoints (uv, xyz, score, theta, 128
+    descriptor floats, valid, level) written once. Operations, float32 a
+    pixel of each octave: the separable Gaussian stack (two passes of 2r+1
+    multiply-adds per blur), the DoG differences, the 3x3x3 extremum test
+    (26 comparisons twice), the Hessian edge test (~20) and the gradients
+    of the interior scales (~20, sqrt and atan2 counted as one each); and a
+    keypoint's orientation window (289 bilinear samples of magnitude and
+    angle, ~30 each, two histogram adds) and descriptor (256 samples,
+    ~40 each with the rotation) with its normalizations; the resize of each
+    octave (two passes, ~4 a pixel)."""
+    import math
+
+    from rgbdslam_v2_tpu_torch.ops.image import gaussian_kernel_1d
+
+    k = 2.0 ** (1.0 / ext.n_scales)
+    sig = [ext.sigma0 * k**i for i in range(ext.n_scales + 3)]
+    incs = [sig[0]] + [math.sqrt(sig[i] ** 2 - sig[i - 1] ** 2) for i in range(1, len(sig))]
+    taps = sum(len(gaussian_kernel_1d(s_)) for s_ in incs)
+    ops, h, w = 0.0, H, W
+    for o in range(ext.n_octaves):
+        if o:
+            h, w = h // 2, w // 2
+            ops += 4 * h * w * 2
+        n_s = ext.n_scales
+        ops += h * w * (2 * 2 * taps + (n_s + 2) + n_s * (52 + 20 + 20))
+        ops += ext.octave_budget(o) * (289 * (2 * 30 + 2) + 36 * 8 + 256 * (2 * 40 + 2) + 128 * 6)
+    K = ext.max_keypoints
+    nbytes = 2 * H * W * 4 + K * (2 + 3 + 1 + 1 + 128) * 4 + K * (1 + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def family_phase(poses, rgbs, depths, stamps, dev, orb_l4: float, n_sift: int, n_fam: int,
+                 n_dtype: int) -> dict:
+    """Phase 13: the feature families on make_pipe (see the docstring)."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.models.orb import feature_depth_map
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    out = {}
+    torch.cuda.empty_cache()
+    sl = slice(0, n_sift)
+    s = bench_config_run(poses[sl], rgbs[sl], depths[sl], stamps[sl], dev, keep=True,
+                         **FAMILY_PARAMS["SIFTGPU"])
+    mgr = s.pop("pipe").manager
+    ext = mgr.extractor
+    # the extractor alone on one frame, eager: device ms and activities
+    k = min(WARMUP, n_sift - 1)
+    gray = (torch.from_numpy(rgbs[k]).to(dev).float()
+            @ torch.tensor([0.299, 0.587, 0.114], device=dev)) / 255.0
+    z = torch.from_numpy(depths[k].astype(np.float32) / 5000.0).to(dev)
+    fdepth = feature_depth_map(z, z > 0, False)
+
+    def extract():
+        return ext(gray, fdepth, TUM_DEFAULT)
+
+    s["ext_ms"], s["ext_ops"] = device_ms(extract), device_ops(extract)
+    s["ext_bound"] = sift_extractor_bound(ext, *gray.shape)
+    # one captured 4-frame step replayed again after the run (it rewrites
+    # its group's node rows and edge slots with the same values): device
+    # ms and activities a frame of the whole SIFT step
+    cap = next(c for key, c in mgr.step_graph._graphs.items() if key[0] == 4)
+    s["step_ms"] = device_ms(cap.graph.replay, n=5) / 4
+    s["step_ops"] = device_ops(cap.graph.replay) / 4
+    s["store_mib"] = mgr.store.desc.numel() * mgr.store.desc.element_size() / 2**20
+    out["SIFTGPU"] = s
+    del mgr, ext, cap
+    torch.cuda.empty_cache()
+
+    # replayed groups against eager single steps, SIFT (phase 7's check)
+    runs = {}
+    sl = slice(0, min(EQUAL_FRAMES, n_sift))
+    for n in (1, 4):
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(
+            tpu_candidate_batch=4, optimizer_skip_step=100, tpu_frames_per_step=n,
+            **FAMILY_PARAMS["SIFTGPU"]), device=dev)
+        pipe.run_arrays(rgbs[sl], depths[sl], stamps[sl], gt_poses=poses[sl])
+        runs[n] = (pipe.manager.poses(), pipe.manager.statistics(),
+                   pipe.manager.step_graph.replays)
+        del pipe
+    out["sift_equal"] = dict(diff=float(np.abs(runs[4][0] - runs[1][0]).max()),
+                             replays=runs[4][2], stats_equal=runs[4][1] == runs[1][1],
+                             frames=sl.stop)
+
+    # BRISK and FREAK against phase 6's ORB
+    sl = slice(0, n_fam)
+    for fam in ("BRISK", "FREAK"):
+        torch.cuda.empty_cache()
+        out[fam] = bench_config_run(poses[sl], rgbs[sl], depths[sl], stamps[sl], dev,
+                                    **FAMILY_PARAMS[fam])
+    out["family_l4_max"] = max(2 * orb_l4, orb_l4 + 0.005)
+
+    # ORB descriptor stores, one frame a step (eager steps: a CUDA graph
+    # is captured for groups of more than one frame), no online optimize
+    sl = slice(0, n_dtype)
+    dt = {}
+    for dtype in ("int8", "bf16", "float32"):
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(
+            tpu_frames_per_step=1, tpu_encode_ahead=False, optimizer_skip_step=100,
+            tpu_descriptor_dtype=dtype), device=dev)
+        pipe.run_arrays(rgbs[sl], depths[sl], stamps[sl], gt_poses=poses[sl])
+        m = pipe.manager
+        dt[dtype] = (m.poses(), m.statistics(), str(m.store.desc.dtype))
+        del pipe, m
+    out["dtypes"] = {d: dict(diff=float(np.abs(dt[d][0] - dt["int8"][0]).max()),
+                             stats_equal=dt[d][1] == dt["int8"][1], dtype=dt[d][2],
+                             edges=dt[d][1]["sequential_edges"])
+                     for d in ("int8", "bf16", "float32")}
+    out["dtype_frames"] = sl.stop
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=520)
@@ -1902,6 +2066,89 @@ def main() -> None:
                                        for w in v) for k, v in tm["loader_waits"].items())
           + "; host ms a frame, wall / main thread CPU / process CPU: "
           + ", ".join(f"{k} {' and '.join(v)}" for k, v in host.items()))
+
+    # ---- 13. the feature families on make_pipe -----------------------------
+    n_sift, n_fam = min(SIFT_FRAMES, args.frames), min(FAMILY_FRAMES, args.frames)
+    n_dtype = min(DTYPE_FRAMES, args.frames)
+    torch.cuda.empty_cache()
+    phase(f"[13 families] SIFTGPU ({n_sift} frames), BRISK and FREAK ({n_fam}) on make_pipe; "
+          f"ORB with bf16 and float32 descriptor stores ({n_dtype})")
+    fp = family_phase(poses, rgbs, depths, stamps, dev, ate_b[4], n_sift, n_fam, n_dtype)
+    sr = fp["SIFTGPU"]
+    sift_max = 1.5 * SIFT_L4_JAX
+    st = sr["stats"]
+    phase(f"[13 families] SIFTGPU at the reference's evaluation settings (600 features, 8 "
+          f"candidates, RANSAC 100, ratio 0.9, RootSIFT) on make_pipe, {n_sift} frames: "
+          f"{sr['fps']:.2f} fps over {n_sift - WARMUP} frames ({sr['ms_per_frame']:.2f} ms a "
+          f"frame); ATE L0..L4 {' / '.join(f'{a:.4f}' for a in sr['ate'])} m (limit L4 <= "
+          f"{sift_max:.4f} = 1.5 x the JAX package's "
+          f"{SIFT_L4_JAX}); nodes {st['nodes']}, active edges {st['active_edges']} "
+          f"({st['sequential_edges']} sequential, {sr['const_edges']} constant-position); "
+          f"detect launches {sr['detect_launches']}, refine {sr['refine_launches']}, Kabsch "
+          f"{sr['kabsch_launches']}; replays {sr['replays']}, synchronizing calls in "
+          f"{sr['replay_groups']} replayed groups {sr['replay_syncs']}, waits that left the "
+          f"card idle {sr['replay_idle']}; peak device memory {sr['peak_gib']:.2f} GiB "
+          f"(descriptor store {sr['store_mib']:.1f} MiB)")
+    eb, eby = sr["ext_bound"]
+    phase(f"[13 families] SIFT extractor, one 640x480 frame, eager: device "
+          f"{fmt_ms(sr['ext_ms'])} (profiler, mean of 20), {sr['ext_ops']} device activities; "
+          f"bound {eb:.5f} ms ({eby}); the whole SIFT step a frame (a captured 4-frame group "
+          f"replayed): device {fmt_ms(sr['step_ms'])}, {sr['step_ops']:.0f} device activities; "
+          f"extractor share "
+          + ("not measured" if not (sr["ext_ms"] and sr["step_ms"])
+             else f"{sr['ext_ms'] / sr['step_ms']:.1%}"))
+    eq = fp["sift_equal"]
+    phase(f"[13 families] SIFTGPU 4 frames a step replayed ({eq['replays']} replays) vs 1 "
+          f"frame a step eager, {eq['frames']} frames: max pose difference {eq['diff']:.3e} "
+          f"(limit 0.0); statistics equal: {eq['stats_equal']}")
+    for fam in ("BRISK", "FREAK"):
+        r = fp[fam]
+        phase(f"[13 families] {fam} (512 bits) on make_pipe, {n_fam} frames: {r['fps']:.2f} "
+              f"fps; ATE L0..L4 {' / '.join(f'{a:.4f}' for a in r['ate'])} m (limit L4 <= "
+              f"{fp['family_l4_max']:.4f} = max(2 x, +0.005 m) ORB's {ate_b[4]:.4f} in phase "
+              f"6); active edges {r['stats']['active_edges']}; detect launches "
+              f"{r['detect_launches']}, refine {r['refine_launches']}; synchronizing calls in "
+              f"{r['replay_groups']} replayed groups {r['replay_syncs']}; peak device memory "
+              f"{r['peak_gib']:.2f} GiB")
+    phase(f"[13 families] ORB descriptor stores, one frame a step, eager, "
+          f"{fp['dtype_frames']} frames: " + "; ".join(
+              f"{d} ({v['dtype']}) max pose difference to int8 {v['diff']:.3e}, statistics "
+              f"equal {v['stats_equal']}, {v['edges']} sequential edges"
+              for d, v in fp["dtypes"].items()))
+    launches_phase["sift"] = (sr["detect_launches"], sr["refine_launches"],
+                              sr["kabsch_launches"])
+    for fam in ("BRISK", "FREAK"):
+        launches_phase[fam.lower()] = (fp[fam]["detect_launches"], fp[fam]["refine_launches"],
+                                       fp[fam]["kabsch_launches"])
+    if st["nodes"] != n_sift or not sr["poses_ok"] or not all(np.isfinite(sr["ate"])):
+        fail(f"SIFTGPU: {st['nodes']} nodes for {n_sift} frames, ATE {sr['ate']}")
+    if sr["ate"][4] > sift_max:
+        fail(f"SIFTGPU: ATE L4 {sr['ate'][4]:.4f} m against the limit {sift_max}")
+    if sr["detect_launches"] or sr["refine_launches"] != n_sift - 1 or sr["kabsch_launches"]:
+        fail(f"SIFTGPU: launches detect {sr['detect_launches']}, refine "
+             f"{sr['refine_launches']}, Kabsch {sr['kabsch_launches']}; expected 0, "
+             f"{n_sift - 1}, 0")
+    if not sr["replays"] or sr["replay_syncs"] or sr["replay_idle"]:
+        fail(f"SIFTGPU: {sr['replays']} replays, {sr['replay_syncs']} syncs and "
+             f"{sr['replay_idle']} idle waits in replayed groups")
+    if not eq["replays"] or eq["diff"] != 0.0 or not eq["stats_equal"]:
+        fail("SIFTGPU: the replayed groups differ from the eager steps")
+    for fam in ("BRISK", "FREAK"):
+        r = fp[fam]
+        if (r["stats"]["nodes"] != n_fam or not r["poses_ok"] or not all(np.isfinite(r["ate"]))
+                or r["ate"][4] > fp["family_l4_max"]):
+            fail(f"{fam}: {r['stats']['nodes']} nodes, ATE {r['ate']} against L4 <= "
+                 f"{fp['family_l4_max']:.4f}")
+        if r["detect_launches"] != n_fam or r["refine_launches"] != n_fam - 1:
+            fail(f"{fam}: launches detect {r['detect_launches']}, refine "
+                 f"{r['refine_launches']} for {n_fam} frames")
+        if r["replay_syncs"] or r["replay_idle"]:
+            fail(f"{fam}: {r['replay_syncs']} syncs, {r['replay_idle']} idle waits in "
+                 f"replayed groups")
+    for d, v in fp["dtypes"].items():
+        if v["diff"] != 0.0 or not v["stats_equal"]:
+            fail(f"descriptor store {d}: poses differ from int8's by {v['diff']:.3e}, "
+                 f"statistics equal {v['stats_equal']}")
 
     marks = sorted(_PHASE_S.items(), key=lambda kv: kv[1]) + [("end", time.perf_counter())]
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s; seconds from each phase's "

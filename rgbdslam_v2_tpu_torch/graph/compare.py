@@ -99,8 +99,9 @@ def compare_to_candidates(
     hs, ws = -(-h // e), -(-w // e)
 
     # ---- matching: B batched knn2 + ratio + dedup -------------------------
-    m = match_descriptors(new_kp.desc, new_kp.valid, store.desc[cand_idx],
-                          store.kp_valid[cand_idx], max_matches, ratio)
+    # the store may hold descriptors in another dtype (tpu_descriptor_dtype)
+    m = match_descriptors(new_kp.desc.to(store.desc.dtype), new_kp.valid,
+                          store.desc[cand_idx], store.kp_valid[cand_idx], max_matches, ratio)
     src = new_kp.xyz[m.src_idx]  # (B, M, 3)
     c_xyz = store.xyz[cand_idx]
     dst = torch.gather(c_xyz, 1, m.dst_idx[..., None].expand(-1, -1, 3))

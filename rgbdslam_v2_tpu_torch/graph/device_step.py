@@ -22,6 +22,7 @@ final score run in one kernel launch (``csrc/kabsch.cu``'s
 """
 from __future__ import annotations
 
+import gc
 import math
 import time
 from typing import Dict, NamedTuple, Tuple
@@ -264,7 +265,7 @@ class _Captured:
 
 class StepGraph:
     """slam_stepN on the card as CUDA graphs, one per (n, FAST threshold,
-    wire length).
+    wire length); SIFT has no FAST threshold (None in the key).
 
     The first group of a key runs eagerly, on a side stream between two
     synchronisations: it warms every lazily built constant and library
@@ -288,7 +289,7 @@ class StepGraph:
         """Run one group whose inputs are `host_flat` (pack_group, pinned);
         returns its (n, 4B+2) summaries in a tensor of their own."""
         dev = self.store.uv.device
-        key = (n, float(cfg["extractor"].fast_threshold), L)
+        key = (n, getattr(cfg["extractor"], "fast_threshold", None), L)
         cap = self._graphs.get(key)
         if cap is None and key not in self._seen:
             self._seen.add(key)
@@ -318,10 +319,19 @@ class StepGraph:
         cap = _Captured(flat, group_views(flat, n, L, B))
         cap.graph.register_generator_state(self.generator)
         counts = [mod.LAUNCHES for mod in _COUNTED]
+        # Dead reference cycles (an earlier pipeline, say) hold device and
+        # pinned host tensors; a collection inside the capture frees them
+        # with calls a capturing stream forbids, and the capture fails. So
+        # collect first and let no collection run until the capture ends.
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(cap.graph):
                 cap.out = slam_stepN(self.store, self.graph, cap.inputs, self.generator, **cfg)
         finally:
+            if gc_on:
+                gc.enable()
             # capturing records the kernels without launching them
             cap.launches = tuple(mod.LAUNCHES - c for mod, c in zip(_COUNTED, counts))
             for mod, c in zip(_COUNTED, counts):

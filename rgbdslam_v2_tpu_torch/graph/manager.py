@@ -1,6 +1,8 @@
 """GraphManager: the SLAM pose graph, fed frame by frame.
 
-Port of ``rgbdslam_v2_tpu/graph/manager.py``: ``__init__``, ``add_frame``
+Port of ``rgbdslam_v2_tpu/graph/manager.py``: ``__init__`` (with the
+feature family and descriptor store, ``make_extractor`` and
+``descriptor_layout``), ``add_frame``
 (first frame, the keep-all fast path and the host-decision path without
 odometry), ``can_group`` and ``add_frame_group`` (N frames a step),
 ``_commit``, ``_add_frame_device`` (``_add_frames_device``, shared with
@@ -71,11 +73,13 @@ from ..config import ParameterServer, default_params
 from ..core.camera import Intrinsics
 from ..core.frames import Frame
 from ..models.orb import OrbExtractor, feature_depth_map
+from ..models.sift import SiftExtractor
 from ..models.types import Keypoints
 from ..optim.pose_graph import (GraphState, edge_chi2, make_graph_state, optimize,
                                  resolve_solver)
 from ..ops import dct_wire
 from ..ops.emm import emm_pool_maps
+from ..ops.sift import DESC_DIM
 from .compare import CompareResult, CompareSummary, compare_to_candidates
 from .device_step import StepGraph, StepSummary, commit_node, group_views, pack_group, slam_stepN
 from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_edges,
@@ -97,6 +101,37 @@ def fast_path(p: ParameterServer) -> bool:
 
 
 FRAMES_PER_STEP = (1, 2, 4, 8)
+# tpu_descriptor_dtype -> the store's dtype for the binary families
+DESC_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16, "float32": torch.float32}
+
+
+def make_extractor(p: ParameterServer, k_cap: int):
+    """The feature family of feature_detector_type / feature_extractor_type,
+    as the JAX package selects it: SIFT wins if either side asks for it
+    (SIFT and SIFTGPU are one family); otherwise ORB's pipeline with the
+    extractor's descriptor: BRIEF unoriented, BRISK or FREAK; SURF and other
+    unknown families warn and fall back to ORB (features.cpp:144-160)."""
+    family = (p["feature_detector_type"].upper(), p["feature_extractor_type"].upper())
+    if any(f in ("SIFT", "SIFTGPU") for f in family):
+        return SiftExtractor(max_keypoints=k_cap,
+                             use_root_sift=p["squareroot_descriptor_space"])
+    for f in family:
+        if f not in ("ORB", "FAST", "BRIEF", "BRISK", "FREAK"):
+            logger.warning("feature family %s not built; falling back to ORB "
+                           "(reference behavior, features.cpp:144-160)", f)
+    return OrbExtractor(
+        max_keypoints=k_cap, fast_threshold=0.06, grid=p["detector_grid_resolution"] + 1,
+        oriented=family[1] != "BRIEF",
+        descriptor={"BRISK": "brisk", "FREAK": "freak"}.get(family[1], "brief"))
+
+
+def descriptor_layout(extractor, p: ParameterServer):
+    """The store's descriptor width and dtype: 128 float32 for SIFT; the
+    binary families' 256 or 512 bits in tpu_descriptor_dtype (their +/-1
+    values are exact in each)."""
+    if isinstance(extractor, SiftExtractor):
+        return DESC_DIM, torch.float32
+    return extractor.desc_bits, DESC_DTYPES[p["tpu_descriptor_dtype"]]
 
 
 def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
@@ -115,7 +150,7 @@ def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
         "tpu_edge_info": p["tpu_edge_info"] != "scalar",
         "tpu_emm_exact": p["tpu_emm_exact"],
         "tpu_approx_select": p["tpu_approx_select"],
-        "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] != "int8",
+        "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] not in DESC_DTYPES,
         "tpu_mesh_devices": p["tpu_mesh_devices"] > 1,
         "global_loop_candidates": p["global_loop_candidates"] > 0,
         "g2o_transformation_refinement": p["g2o_transformation_refinement"] > 0,
@@ -123,8 +158,6 @@ def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
         "start_paused": p["start_paused"],
         "cloud_creation_skip_step": cam.height % (2 * s) != 0 or cam.width % (2 * s) != 0,
     }
-    families = {p["feature_detector_type"].upper(), p["feature_extractor_type"].upper()}
-    refused["feature_extractor_type"] = bool(families & {"SIFT", "SIFTGPU", "BRISK", "FREAK"})
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise NotImplementedError(
@@ -148,7 +181,7 @@ def _inaffected_kernel(graph: GraphState, gi, ge, li, lj, nfix, nact, eact, free
 
 class GraphManager:
     def __init__(self, cam: Intrinsics, params: Optional[ParameterServer] = None,
-                 device=None, extractor: Optional[OrbExtractor] = None):
+                 device=None, extractor=None):
         self.params = params or default_params()
         p = self.params
         check_slice(p, cam)
@@ -168,19 +201,13 @@ class GraphManager:
         self.cam_small = Intrinsics(fx=cam.fx / s, fy=cam.fy / s, cx=cam.cx / s,
                                     cy=cam.cy / s, width=cam.width // s,
                                     height=cam.height // s)
-        for f in (p["feature_detector_type"].upper(), p["feature_extractor_type"].upper()):
-            if f not in ("ORB", "FAST", "BRIEF"):
-                logger.warning("feature family %s not built; falling back to ORB "
-                               "(reference behavior, features.cpp:144-160)", f)
-        self.extractor = extractor or OrbExtractor(
-            max_keypoints=self.k_cap, fast_threshold=0.06,
-            grid=p["detector_grid_resolution"] + 1,
-            oriented=p["feature_extractor_type"].upper() != "BRIEF",
-        )
-        self._base_threshold = self.extractor.fast_threshold
+        self.extractor = extractor or make_extractor(p, self.k_cap)
+        # the adaptive FAST ladder's base; None for SIFT, which has no FAST
+        self._base_threshold = getattr(self.extractor, "fast_threshold", None)
+        desc_dim, desc_dtype = descriptor_layout(self.extractor, p)
         self.store = NodeStore.create(
-            self.n_cap, self.k_cap, 256, self.cam_small.height, self.cam_small.width,
-            store_color=p["store_pointclouds"], device=self.device)
+            self.n_cap, self.k_cap, desc_dim, self.cam_small.height, self.cam_small.width,
+            store_color=p["store_pointclouds"], device=self.device, desc_dtype=desc_dtype)
         self.graph = make_graph_state(self.n_cap, self.e_cap, device=self.device)
         self.host = HostGraph(self.e_cap, p, p["tpu_seed"])
         self.generator = torch.Generator(device=self.device)
@@ -680,7 +707,7 @@ class GraphManager:
         fallbacks = []  # (new_id, fallback edge slot) for the ICP rescue
         for batch in batches:
             fallbacks += self._drain_batch(*batch[:3], lagged=lagged)
-        while self._staged and self.extractor.fast_threshold < self._base_threshold:
+        while self._staged and self._ladder_engaged():
             # the ladder needs this drain's counts: read the batch just staged
             fallbacks += self._drain_batch(*self._staged.pop(0)[:3])
         if fallbacks and self.params["use_icp"]:
@@ -774,12 +801,18 @@ class GraphManager:
                         n_inliers=int(flags[k, 1]), rmse=float(flags[k, 2]),
                         emm_quality=float(flags[k, 3])))
 
+    def _ladder_engaged(self) -> bool:
+        """Whether the adaptive FAST threshold sits below its base."""
+        return (self._base_threshold is not None
+                and self.extractor.fast_threshold < self._base_threshold)
+
     def _adapt_detector(self, n_valid_kp: int) -> None:
         """Halve the FAST threshold on starvation, step back on saturation
-        (DetectorAdjuster semantics, at most adjuster_max_iterations rungs)."""
+        (DetectorAdjuster semantics, at most adjuster_max_iterations rungs;
+        nothing to adapt for SIFT)."""
         p = self.params
         max_rungs = p["adjuster_max_iterations"]
-        if max_rungs <= 0:
+        if self._base_threshold is None or max_rungs <= 0:
             return
         t = self.extractor.fast_threshold
         low_bar = max(p["min_keypoints"], 2 * p["min_matches"])
@@ -1003,7 +1036,7 @@ class GraphManager:
             edge_active_host=[int(x) for x in h.edge_active[: h.n_edges]],
             nodes_opt_watermark=self._nodes_opt_watermark, kp_count0=self._kp_count0,
             port=dict(
-                fast_threshold=self.extractor.fast_threshold,
+                fast_threshold=getattr(self.extractor, "fast_threshold", None),
                 contrast_ema=self._contrast_ema, starved_mode=self._starved_mode,
                 nodes_since_optimize=self.nodes_since_optimize,
                 clear_queue=list(h.clear_queue), host_rng=h.rng.bit_generator.state,
@@ -1062,8 +1095,9 @@ class GraphManager:
         run = meta.get("port")
         if run is None:
             return
-        self.extractor = dataclasses.replace(self.extractor,
-                                             fast_threshold=run["fast_threshold"])
+        if self._base_threshold is not None:
+            self.extractor = dataclasses.replace(self.extractor,
+                                                 fast_threshold=run["fast_threshold"])
         self._contrast_ema, self._starved_mode = run["contrast_ema"], run["starved_mode"]
         self.nodes_since_optimize = run["nodes_since_optimize"]
         h.clear_queue = list(run["clear_queue"])

@@ -25,7 +25,8 @@ EMPTY_LOHI = 0xFC007C00 - (1 << 32)
 
 @dataclasses.dataclass
 class NodeStore:
-    """uv (N, K, 2) f32 | xyz (N, K, 3) f32 | desc (N, K, D) int8 |
+    """uv (N, K, 2) f32 | xyz (N, K, 3) f32 | desc (N, K, D) int8, bf16 or
+    f32 (D and dtype by the feature family and tpu_descriptor_dtype) |
     kp_valid (N, K) bool | depth (N, h*w) f32 (0 = invalid) |
     emm_lohi (N, h*w) int32 packed pools | color (N, h*w*3) u8."""
 
@@ -39,13 +40,14 @@ class NodeStore:
 
     @classmethod
     def create(cls, n_cap: int, k_cap: int, desc_dim: int, emm_h: int, emm_w: int,
-               store_color: bool = True, *, device) -> "NodeStore":
+               store_color: bool = True, *, device,
+               desc_dtype: torch.dtype = torch.int8) -> "NodeStore":
         color_len = emm_h * emm_w * 3 if store_color else 3
         kw = dict(device=device)
         return cls(
             uv=torch.zeros((n_cap, k_cap, 2), dtype=torch.float32, **kw),
             xyz=torch.zeros((n_cap, k_cap, 3), dtype=torch.float32, **kw),
-            desc=torch.zeros((n_cap, k_cap, desc_dim), dtype=torch.int8, **kw),
+            desc=torch.zeros((n_cap, k_cap, desc_dim), dtype=desc_dtype, **kw),
             kp_valid=torch.zeros((n_cap, k_cap), dtype=torch.bool, **kw),
             depth=torch.zeros((n_cap, emm_h * emm_w), dtype=torch.float32, **kw),
             emm_lohi=torch.full((n_cap, emm_h * emm_w), EMPTY_LOHI, dtype=torch.int32, **kw),
@@ -58,7 +60,7 @@ class NodeStore:
         the index stays on the device, so a captured step can replay it."""
         self.uv.index_copy_(0, idx, kp.uv[None])
         self.xyz.index_copy_(0, idx, kp.xyz[None])
-        self.desc.index_copy_(0, idx, kp.desc[None])
+        self.desc.index_copy_(0, idx, kp.desc[None].to(self.desc.dtype))
         self.kp_valid.index_copy_(0, idx, kp.valid[None])
         self.depth.index_copy_(0, idx, depth_small.reshape(1, -1))
         self.emm_lohi.index_copy_(0, idx, emm_pool_maps(depth_small).reshape(1, -1))

@@ -6,6 +6,11 @@ back.
   and int32 with the same bits in the port; the JAX store's ``emm_zs``
   plane has no counterpart and is dropped.
 * ``GraphState``, ``Keypoints``: field by field, dtypes unchanged.
+* bfloat16 (a ``tpu_descriptor_dtype=bf16`` store): numpy has no
+  bfloat16. ``np.asarray`` of a JAX bfloat16 array is an ``ml_dtypes``
+  array, which ``np.save`` writes as raw 2-byte words (``|V2``); the port
+  writes its bf16 tensors the same way and reads ``|V2`` as bf16 bits,
+  without ml_dtypes.
 * ``SyntheticWorld``: textures, boxes, extent.
 * A checkpoint the JAX package's ``GraphManager.save_state`` wrote: its
   arrays are numbered leaves, ``store_i`` and ``graph_i``, in the order of
@@ -54,13 +59,25 @@ def _fields(obj) -> Dict[str, Any]:
     raise TypeError(f"cannot read fields of {type(obj).__name__}")
 
 
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy as numpy; bfloat16 as raw 2-byte words (|V2), as numpy
+    saves JAX's bfloat16."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
 def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:  # JAX bfloat16 words
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def to_numpy(state) -> Dict[str, np.ndarray]:
     """Port state (NodeStore, GraphState, Keypoints) -> numpy arrays."""
-    out = {k: v.detach().cpu().numpy() for k, v in _fields(state).items()}
+    out = {k: tensor_to_numpy(v) for k, v in _fields(state).items()}
     if isinstance(state, NodeStore):
         out["emm_lohi"] = out["emm_lohi"].view(np.uint32)
     return out

@@ -3,7 +3,11 @@
 Port of ``rgbdslam_v2_tpu/models/orb.py``: ``OrbExtractor.__call__``
 (4-level bilinear pyramid, FAST+Harris+NMS per level, per-cell top-k,
 32x32 patch description on the blurred level image, global top-K merge,
-backprojection), ``min_depth_map`` and ``feature_depth_map``.
+backprojection), ``min_depth_map`` and ``feature_depth_map``. The
+``descriptor`` field picks the binary family as in the JAX version:
+steered BRIEF (256 bits, ORB's), or BRISK / FREAK (512 bits,
+``ops/brisk.py`` / ``ops/freak.py``), which describe the raw, unblurred
+level image through their own smoothing footprints.
 
 The level images are built first, each resized from level 0 straight into
 the detect kernel's level layout (rows padded to 4 floats where the width
@@ -25,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.camera import Intrinsics
-from ..ops import detect, fast as fast_ops, orb as orb_ops
+from ..ops import brisk, detect, fast as fast_ops, freak, orb as orb_ops
 from ..ops.image import gaussian_blur, resize_bilinear
 from .types import Keypoints
 
@@ -41,6 +45,12 @@ class OrbExtractor:
     grid: int = 4
     # oriented=False: plain (un-steered) BRIEF, theta reported as 0
     oriented: bool = True
+    # "brief" (steered BRIEF, 256 bits), "brisk" or "freak" (512 bits)
+    descriptor: str = "brief"
+
+    @property
+    def desc_bits(self) -> int:
+        return 512 if self.descriptor in ("brisk", "freak") else 256
 
     def level_shapes(self, H: int, W: int) -> List[Tuple[int, int]]:
         out = []
@@ -76,9 +86,13 @@ class OrbExtractor:
         for lvl, (img_l, score_map) in enumerate(zip(images, score_maps)):
             k_l = self.level_budget(lvl)
             uv, sc, _ = fast_ops.select_keypoints_grid(score_map, k_l, grid=self.grid)
-            blur_l = gaussian_blur(img_l, 2.0)
-            patches = orb_ops.extract_patches(blur_l, uv)
-            theta_l, desc_l = orb_ops.describe_patches(patches, self.oriented)
+            if self.descriptor == "brief":
+                patches = orb_ops.extract_patches(gaussian_blur(img_l, 2.0), uv)
+                theta_l, desc_l = orb_ops.describe_patches(patches, self.oriented)
+            else:
+                describe = (brisk.describe_patches_brisk if self.descriptor == "brisk"
+                            else freak.describe_patches_freak)
+                theta_l, desc_l = describe(orb_ops.extract_patches(img_l, uv), self.oriented)
             all_uv.append(uv * (self.scale_factor**lvl))
             all_score.append(sc)
             all_level.append(torch.full((k_l,), lvl, dtype=torch.int32, device=dev))

@@ -2,8 +2,8 @@
 
 Port of ``rgbdslam_v2_tpu/ops/image.py``: ``gaussian_kernel_1d``,
 ``_conv1d`` (shift-and-add with reflect padding, same operation order),
-``gaussian_blur``, ``sobel``, ``harris_response``, ``maxpool2d_same`` and
-``resize_bilinear``.
+``gaussian_blur``, ``sobel``, ``harris_response``, ``maxpool2d_same``,
+``resize_bilinear`` and ``bilinear_sample``.
 
 ``resize_bilinear`` reproduces ``jax.image.resize(method="bilinear")``,
 which antialiases when it downsamples (a triangle kernel stretched by the
@@ -60,9 +60,12 @@ def sobel(img: torch.Tensor):
 
 
 def maxpool2d_same(img: torch.Tensor, size: int = 3) -> torch.Tensor:
-    """Max over a size x size window (-inf outside), same shape."""
+    """Max over a size x size window (-inf outside) of each (H, W) plane of
+    img (..., H, W), same shape."""
     r = size // 2
-    return F.max_pool2d(img[None, None], size, stride=1, padding=r)[0, 0]
+    H, W = img.shape[-2:]
+    out = F.max_pool2d(img.reshape(-1, 1, H, W), size, stride=1, padding=r)
+    return out.reshape(img.shape)
 
 
 def harris_response(img: torch.Tensor, k: float = 0.04, window_sigma: float = 1.5):
@@ -115,3 +118,27 @@ def resize_bilinear(img: torch.Tensor, shape, out: torch.Tensor | None = None) -
     if res is img:
         out.copy_(img)
     return out
+
+
+def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    plane: torch.Tensor | None = None) -> torch.Tensor:
+    """Sample an (H, W) image at float coordinates x (columns), y (rows),
+    clamped to [0, W - 1.001] x [0, H - 1.001], in the JAX version's order of
+    operations. With `plane` (a long tensor broadcastable to x), img is an
+    (S, H, W) stack and each sample reads its own plane."""
+    H, W = img.shape[-2:]
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = x - x0
+    fy = y - y0
+    flat = img.reshape(-1)
+    base = y0 * W + x0
+    if plane is not None:
+        base = base + plane * (H * W)
+    v00 = flat[base]
+    v01 = flat[base + 1]
+    v10 = flat[base + W]
+    v11 = flat[base + W + 1]
+    return (1 - fy) * ((1 - fx) * v00 + fx * v01) + fy * ((1 - fx) * v10 + fx * v11)

@@ -4,9 +4,17 @@ Port of ``rgbdslam_v2_tpu/ops/matching.py`` (``descriptor_distances``,
 ``match_descriptors``), batched over a leading candidate dimension (the
 JAX version is vmapped).
 
-Hamming(a, b) = (D - a.b) / 2 for +/-1 descriptors. The dot product is a
-float32 matmul of +/-1 values: 256 terms of +/-1 sum exactly in float32,
-and CUDA has no general int8 matmul in torch.
+Distances dispatch on the descriptor dtype, as in the JAX version:
+
+* int8 +/-1 (ORB, BRIEF, BRISK, FREAK): Hamming(a, b) = (D - a.b) / 2. The
+  dot product is a float32 matmul of +/-1 values: 256 or 512 terms of +/-1
+  sum exactly in float32, and CUDA has no general int8 matmul in torch.
+* float (SIFT's float32, and the bf16 / float32 binary stores of
+  ``tpu_descriptor_dtype``): squared L2, max(a2 + b2 - 2 a.b, 0). The
+  products are computed in float32 (a bf16 store is widened first, so a
+  cuBLAS bf16 reduction never rounds a partial sum; TF32 stays off, ROADMAP
+  F4). For +/-1 values this is exactly 4 x Hamming, so the ratio test, the
+  dedup and the top-M pick the same matches as the int8 store.
 """
 from __future__ import annotations
 
@@ -29,10 +37,16 @@ class Matches(NamedTuple):
 
 
 def descriptor_distances(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(..., Ka, D) x (..., Kb, D) int8 +/-1 -> (..., Ka, Kb) Hamming."""
-    D = desc_a.shape[-1]
-    dot = desc_a.float() @ desc_b.float().transpose(-1, -2)
-    return (D - dot) * 0.5
+    """(..., Ka, D) x (..., Kb, D) -> (..., Ka, Kb): Hamming for int8 +/-1
+    descriptors, squared L2 for float ones."""
+    a = desc_a.float()
+    b = desc_b.float()
+    dot = a @ b.transpose(-1, -2)
+    if desc_a.dtype == torch.int8:
+        return (desc_a.shape[-1] - dot) * 0.5
+    a2 = torch.sum(a * a, dim=-1, keepdim=True)
+    b2 = torch.sum(b * b, dim=-1)
+    return torch.clamp(a2 + b2[..., None, :] - 2.0 * dot, min=0.0)
 
 
 def match_descriptors(desc_a: torch.Tensor, valid_a: torch.Tensor,

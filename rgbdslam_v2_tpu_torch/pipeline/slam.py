@@ -37,6 +37,7 @@ from ..core import se3
 from ..core.camera import Intrinsics, backproject_grid
 from ..eval.ate import evaluate_ate
 from ..graph.manager import GraphManager
+from ..interop import tensor_to_numpy
 from ..io.tum import TumDataset, TumLoader, write_trajectory
 from ..mapping import VoxelMap, VoxelMapConfig
 
@@ -344,16 +345,17 @@ class SlamPipeline:
     def save_features(self, path) -> None:
         """World-frame feature positions, descriptors and node ids as .npz
         (saveAllFeaturesToFile, graph_mgr_io.cpp:445-497), with the JAX
-        package's keys and dtypes."""
+        package's keys and dtypes (a bf16 store's descriptors as the raw
+        2-byte words numpy writes for JAX's bfloat16)."""
         mgr = self.manager
         mgr._drain_pending()
         n = mgr.n_nodes
         valid = mgr.store.kp_valid[:n].cpu().numpy()
         xyz = se3.apply(mgr.graph.poses[:n], mgr.store.xyz[:n]).cpu().numpy()
-        desc = mgr.store.desc[:n].cpu().numpy()
+        desc = tensor_to_numpy(mgr.store.desc[:n])
         ids = np.broadcast_to(np.arange(n, dtype=np.int32)[:, None], valid.shape)
         np.savez_compressed(
             path,
             positions=xyz[valid] if n else np.zeros((0, 3)),
-            descriptors=desc[valid] if n else np.zeros((0, 256)),
+            descriptors=desc[valid] if n else np.zeros((0, mgr.store.desc.shape[-1])),
             node_ids=ids[valid] if n else np.zeros(0, np.int32))

@@ -16,6 +16,7 @@ from rgbdslam_v2_tpu.io import native_loader  # noqa: E402
 from rgbdslam_v2_tpu.ops import dct_wire as jdw  # noqa: E402
 from rgbdslam_v2_tpu_torch.graph import ingest as ti  # noqa: E402
 from rgbdslam_v2_tpu_torch.ops import dct_wire as tdw  # noqa: E402
+from test_torch_native_compact import jax_native_encoder  # noqa: E402,F401
 
 torch.set_num_threads(1)
 QUALITIES = ["2.3", "2.7", "3.1"]

@@ -10,6 +10,7 @@ import torch  # noqa: E402
 
 from rgbdslam_v2_tpu.graph import manager as jm  # noqa: E402
 from rgbdslam_v2_tpu_torch.graph import ingest as ti  # noqa: E402
+from test_torch_native_compact import jax_native_encoder  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W, STRIDE = 96, 128, 2

@@ -3,7 +3,9 @@ optimize calls report their iteration count (the JAX package's rule, set at
 rgbdslam_v2_tpu/graph/manager.py in GraphManager.optimize), and, on the
 card (marker `cuda`): the default configuration's host-decision path waits
 for the card once a frame, the keep-all step never, and a group of frames
-replayed as one CUDA graph equals the same frames stepped one by one. With
+replayed as one CUDA graph equals the same frames stepped one by one (also
+for the SIFTGPU, BRISK and FREAK families, and int8, bf16 and float32
+descriptor stores give equal poses). With
 the GICP rescue (use_icp) on a 640x480 dark stretch: the keep-all path
 waits for the card only at the blocking drains of its starved mode (never
 for a rescue in flight), replayed groups with rescues equal the same groups
@@ -215,6 +217,72 @@ def test_grouped_replay_equals_eager_steps():
     assert d4 == d1 == 25 and k4 == k1 == (24, 0)  # (refine, Kabsch) launches
     assert s4 == s1
     np.testing.assert_allclose(p4, p1, rtol=0, atol=1e-6)
+
+
+FAMILIES = {"SIFTGPU": dict(feature_detector_type="SIFTGPU", feature_extractor_type="SIFTGPU",
+                            nn_distance_ratio=0.9),
+            "BRISK": dict(feature_extractor_type="BRISK"),
+            "FREAK": dict(feature_extractor_type="FREAK")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_family_grouped_replay_equals_eager_steps(family):
+    """The feature families through bench.py's configuration (4
+    candidates, no online optimize in the run): 4 frames a step replayed as
+    CUDA graphs against 1 frame a step, eager, give equal poses (exactly:
+    the SIFT histograms are fixed-order sums, no atomic adds) and equal
+    statistics; a replayed group makes no synchronizing call. Launches:
+    the detect kernel once a frame for BRISK and FREAK (ORB's detector),
+    never for SIFT; the refine kernel once a frame after the first."""
+    poses, rgbs, depths = _render(25)
+    stamps = np.arange(25) / 30.0
+    runs = {}
+    for n in (1, 4):
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
+            {**BENCH, **FAMILIES[family], "tpu_candidate_batch": 4,
+             "optimizer_skip_step": 100, "tpu_frames_per_step": n}))
+        group = pipe._process_group
+        replay_sites = []
+
+        def watched(*a, _group=group, _mgr=pipe.manager, **kw):
+            sg = _mgr.step_graph
+            before = (sg.captures, sg.eager_groups)
+            sites = _sync_sites(lambda: _group(*a, **kw))
+            if (sg.captures, sg.eager_groups) == before:
+                replay_sites.append(sites)
+
+        pipe._process_group = watched
+        detect.reset_launches()
+        registration.reset_launches()
+        pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
+        runs[n] = (pipe.manager.poses(), pipe.manager.statistics(), detect.LAUNCHES,
+                   registration.LAUNCHES, replay_sites)
+    (p1, s1, d1, r1, _), (p4, s4, d4, r4, sites) = runs[1], runs[4]
+    assert len(sites) == 4 and all(not s for s in sites), sites
+    assert d4 == d1 == (0 if family == "SIFTGPU" else 25) and r4 == r1 == 24
+    assert s4 == s1 and s1["sequential_edges"] > 25
+    np.testing.assert_array_equal(p4, p1)
+
+
+@pytest.mark.cuda
+def test_descriptor_stores_give_equal_poses_on_the_card():
+    """int8, bf16 and float32 stores, one frame a step, 25 frames of
+    640x480, no online optimize in the run (its float atomic adds are not
+    run-to-run exact): equal poses and statistics (the float stores' distances are 4
+    x Hamming, computed in float32 whatever cuBLAS allows for bf16)."""
+    poses, rgbs, depths = _render(25)
+    stamps = np.arange(25) / 30.0
+    runs = {}
+    for dtype in ("int8", "bf16", "float32"):
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
+            {**BENCH, "tpu_frames_per_step": 1, "tpu_encode_ahead": False,
+             "optimizer_skip_step": 100, "tpu_descriptor_dtype": dtype}))
+        pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
+        runs[dtype] = (pipe.manager.poses(), pipe.manager.statistics())
+    for dtype in ("bf16", "float32"):
+        np.testing.assert_array_equal(runs[dtype][0], runs["int8"][0])
+        assert runs[dtype][1] == runs["int8"][1]
 
 
 ICP_BENCH = {**BENCH, "use_icp": True, "icp_max_iterations": 12, "tpu_candidate_batch": 4,

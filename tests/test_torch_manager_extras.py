@@ -29,6 +29,7 @@ from rgbdslam_v2_tpu_torch.core.frames import make_frame  # noqa: E402
 from rgbdslam_v2_tpu_torch.graph import ingest  # noqa: E402
 from rgbdslam_v2_tpu_torch.mapping import VoxelMap  # noqa: E402
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline  # noqa: E402
+from test_torch_native_compact import jax_native_encoder  # noqa: E402,F401
 
 torch.set_num_threads(1)
 CAM = (130.0, 130.0, 80.0, 60.0, 160, 120)

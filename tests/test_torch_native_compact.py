@@ -15,8 +15,19 @@ encoder and the JAX package's numpy path.
   as the differing codes move the pixels (a code off by 1 at a step of 16
   moves a pixel by up to 4 grey levels), within 1 for the rounding.
 * A layout the C code refuses goes to numpy and is counted; a build that
-  fails raises."""
+  fails raises.
+
+It also holds ``jax_native_encoder``, the module fixture every port test
+file that compares against the JAX ``compact_frame`` or ``GraphManager``
+imports: the JAX package builds ``native/librgbd_loader.so`` in place at
+first use, unlocked, in every xdist worker that collects its native tests,
+and keeps a failure (a worker loading the file while another's linker
+writes it: "file too short") for good, encoding through cv2's rounding from
+then on. The fixture loads the library under a file lock, retrying after
+such a failure, and fails the test if it never loads."""
+import fcntl
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +42,35 @@ from rgbdslam_v2_tpu_torch.io import native_compact  # noqa: E402
 from rgbdslam_v2_tpu_torch.ops import dct_wire  # noqa: E402
 
 H, W = 120, 160
+
+
+def require_jax_native(attempts: int = 3) -> None:
+    """Load the JAX package's native library in this process, or raise.
+
+    Under an exclusive lock beside the library: forget a failure kept from
+    an unlocked concurrent build and load again; after a second failure
+    remove the file, so the next attempt builds it anew."""
+    if native_loader._lib is not None:
+        return
+    lock = native_loader._LIB.with_suffix(".lock")
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        for attempt in range(attempts):
+            native_loader._build_error = None
+            if native_loader._ensure_built() is not None:
+                return
+            if attempt >= 1:
+                native_loader._LIB.unlink(missing_ok=True)
+            time.sleep(0.5)
+    raise RuntimeError(f"the JAX package's native library did not load: "
+                       f"{native_loader._build_error}")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native_encoder():
+    """The JAX package encodes through its native library in this module
+    (its numpy route rounds grey through cv2 where cv2 is installed)."""
+    require_jax_native()
 
 
 def _frame(rng, depth_kind, luma="rgb"):
@@ -149,3 +189,15 @@ def test_build_is_keyed_and_git_ignored():
     native_compact.library()
     assert path.exists()
     assert backend.library_path("compact_ingest", ["clang++", *backend.HOST_FLAGS]) != path
+
+
+def test_a_kept_build_failure_is_retried(monkeypatch):
+    """A failure the JAX loader kept from a build raced by another worker
+    (the file read while a linker wrote it) does not stick: the fixture's
+    helper forgets it under the lock and loads the library."""
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.setattr(native_loader, "_build_error",
+                        f"{native_loader._LIB}: file too short")
+    assert not native_loader.native_available()  # the loader alone keeps it
+    require_jax_native()
+    assert native_loader.native_available() and native_loader._build_error is None

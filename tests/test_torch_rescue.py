@@ -26,6 +26,7 @@ from rgbdslam_v2_tpu_torch import interop  # noqa: E402
 from rgbdslam_v2_tpu_torch.core.camera import Intrinsics  # noqa: E402
 from rgbdslam_v2_tpu_torch.graph import rescue  # noqa: E402
 from rgbdslam_v2_tpu_torch.ops.emm import emm_pool_maps  # noqa: E402
+from test_torch_native_compact import jax_native_encoder  # noqa: E402,F401
 
 CAM = (130.0, 130.0, 80.0, 60.0, 160, 120)
 CAM_SMALL = (65.0, 65.0, 40.0, 30.0, 80, 60)

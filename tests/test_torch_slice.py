@@ -25,6 +25,7 @@ from rgbdslam_v2_tpu_torch.config import ParameterServer  # noqa: E402
 from rgbdslam_v2_tpu_torch.core.camera import Intrinsics  # noqa: E402
 from rgbdslam_v2_tpu_torch.io import render_sequence  # noqa: E402
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline  # noqa: E402
+from test_torch_native_compact import jax_native_encoder  # noqa: E402,F401
 
 torch.set_num_threads(1)
 CAM = (130.0, 130.0, 80.0, 60.0, 160, 120)
@@ -77,7 +78,8 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
     {"use_robot_odom": True}, {"tpu_gray_bits": 6}, {"tpu_ingest_format": "raw"},
     {"tpu_wire_delta": True, "tpu_frames_per_step": 2}, {"start_paused": True},
     {"global_loop_candidates": 2}, {"tpu_wire_delta": True},
-    {"feature_extractor_type": "SIFT"}, {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
+    {"tpu_ingest_format": "raw", "tpu_frames_per_step": 2},
+    {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
     {"g2o_transformation_refinement": 2}, {"tpu_frames_per_step": 3},
 ])
 def test_config_outside_the_slice_raises(override):
@@ -117,6 +119,12 @@ def test_ydct_outside_its_domain_raises(override):
     {"use_icp": True}, {"use_icp": True, "keep_all_nodes": False, "icp_variant": "icp"},
     # the TUM entry point's options
     {"depth_scaling_factor": 2.0}, {"octomap_online_creation": True},
+    # the feature families and descriptor stores
+    {"feature_extractor_type": "SIFT"},
+    {"feature_detector_type": "SIFTGPU", "feature_extractor_type": "SIFTGPU",
+     "tpu_frames_per_step": 4, "tpu_ingest_format": "ydct"},
+    {"feature_extractor_type": "BRISK"}, {"feature_extractor_type": "FREAK"},
+    {"tpu_descriptor_dtype": "bf16"}, {"tpu_descriptor_dtype": "float32"},
 ])
 def test_config_inside_the_port_builds(override):
     pipe = SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")

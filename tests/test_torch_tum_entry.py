@@ -40,6 +40,7 @@ from rgbdslam_v2_tpu_torch.config import ParameterServer  # noqa: E402
 from rgbdslam_v2_tpu_torch.core.camera import Intrinsics  # noqa: E402
 from rgbdslam_v2_tpu_torch.io import TumDataset, TumLoader, save_as_tum_dataset, tum  # noqa: E402
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline  # noqa: E402
+from test_torch_native_compact import jax_native_encoder  # noqa: E402,F401
 
 torch.set_num_threads(1)
 CAM = (130.0, 130.0, 80.0, 60.0, 160, 120)

@@ -30,11 +30,15 @@ rendered by that tool and cut to N frames; dark_stretch rendered at N
 frames and darkened from 40% to 60% of them, as chip_smoke.py phase 11
 does); --icp adds use_icp=True to both packages' parameters; --config
 default runs default_params() (the host-decision path) in place of
-make_pipe.
+make_pipe. --family takes a feature family's settings on top of the
+configuration (chip_smoke.FAMILY_PARAMS: SIFTGPU at the reference's
+published evaluation settings, BRISK, FREAK; ORB adds nothing), as
+chip_smoke.py phase 13 runs them; --packages runs one package only.
 
 Usage: JAX_PLATFORMS=cpu python3 tools/make_pipe_same_frames.py
            [--frames 200] [--seeds 0 1] [--threads 4] [--jax-drains-land-at-once]
-           [--sequence orbit] [--icp] [--config make_pipe]
+           [--sequence orbit] [--icp] [--config make_pipe] [--family ORB]
+           [--packages jax torch]
 """
 from __future__ import annotations
 
@@ -76,6 +80,8 @@ def main() -> None:
                     choices=("orbit", "dark_stretch", "low_texture", "depth_holes", "spin360"))
     ap.add_argument("--icp", action="store_true")
     ap.add_argument("--config", default="make_pipe", choices=("make_pipe", "default"))
+    ap.add_argument("--family", default="ORB", choices=("ORB", "SIFTGPU", "BRISK", "FREAK"))
+    ap.add_argument("--packages", nargs="+", default=["jax", "torch"], choices=("jax", "torch"))
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import jax
@@ -86,7 +92,7 @@ def main() -> None:
     import torch
 
     torch.set_num_threads(args.threads)
-    from chip_smoke import MAKE_PIPE, WORLD_SEED
+    from chip_smoke import FAMILY_PARAMS, MAKE_PIPE, WORLD_SEED
     from rgbdslam_v2_tpu.config import ParameterServer as JParams
     from rgbdslam_v2_tpu.core.camera import TUM_DEFAULT as J_TUM
     from rgbdslam_v2_tpu.io import SyntheticWorld as JWorld, render_sequence
@@ -127,9 +133,10 @@ def main() -> None:
         type(jnp.zeros(1)).is_ready = lambda self: True
     for seed in args.seeds:
         res = {}
-        for name in ("jax", "torch"):
+        for name in args.packages:
             params = dict(MAKE_PIPE if args.config == "make_pipe" else {}, tpu_seed=seed,
-                          **({"use_icp": True} if args.icp else {}))
+                          **({"use_icp": True} if args.icp else {}),
+                          **FAMILY_PARAMS.get(args.family, {}))
             if name == "jax":  # defaults, then the configuration's values
                 quality = jdw.QUALITY
                 pipe = JPipeline(J_TUM, JParams(params))
@@ -140,10 +147,12 @@ def main() -> None:
             if name == "jax":
                 jdw.set_quality(quality)
             r = res[name]
-            print(f"seed {seed} {name:5s}: ATE L0..L4 {' / '.join(f'{a:.4f}' for a in r['ate'])} "
+            print(f"seed {seed} {name:5s} {args.family}: ATE L0..L4 {' / '.join(f'{a:.4f}' for a in r['ate'])} "
                   f"m; accepted edges {r['seq']} sequential + {r['loop']} loop; nodes "
                   f"{r['nodes']}; run {r['run_s']:.0f} s (CPU)", flush=True)
             del pipe
+        if len(res) < 2:
+            continue
         j, t = res["jax"], res["torch"]
         acc_j, acc_t = j["seq"] + j["loop"], t["seq"] + t["loop"]
         l4_ratio = t["ate"][4] / j["ate"][4]
