@@ -55,6 +55,29 @@
 //    the keep-or-not choice is a register select. One write of the outputs,
 //    no host sync: the launch can be captured in a CUDA graph.
 //
+//    With projective_iterations > 0 (g2o_transformation_refinement) a
+//    stage runs between the last refit and the final gate, what
+//    ops/projective.refine_projective and the projective branch of
+//    ops/registration.ransac_refine_plain compute (JAX
+//    rgbdslam_v2_tpu/ops/registration.py:280-305 and
+//    rgbdslam_v2_tpu/ops/projective.py:59-153, no Pallas source): the gate
+//    of T gives the inliers; each inlier's landmark starts at its new-frame
+//    point backprojected from (u, v, z); then `projective_iterations` times
+//    every thread takes one 3x3 Gauss-Newton step of each of its own
+//    landmarks (pixel and depth residuals in both cameras, information
+//    diag(1, 1, 1/(sigma_depth max(z, 0.3)^2)^2), damping 1e-6, the 3x3
+//    solved by pivoted elimination) and adds its matches' terms of the 6x6
+//    pose system (21 + 6 doubles); one block reduction, then thread 0
+//    solves the 6x6 by pivoted elimination, drops a step that is not finite
+//    or has |xi| >= 1, and applies exp_se3(xi) on the left. T takes the
+//    result where its gate keeps no fewer inliers. The stage computes in
+//    double (JAX: float32) and keeps the landmarks in a float64 scratch
+//    array of (B, M, 3) in global memory (L2-resident at 8 x 300: 58 KB).
+//    It is a template branch: the launch with projective_iterations == 0
+//    is the kernel without it. What bounds it: latency again; each
+//    iteration is ~330 double operations a match and a block reduction
+//    and a 6x6 solve on one thread that every thread waits for.
+//
 // The 3x3 SVD (both entries) is taken in registers: cyclic Jacobi on H^T H
 // gives V and the singular values in descending order; u1 = H v1 / |H v1|,
 // u2 is H v2 made orthogonal to u1 and normalised, u3 = u1 x u2. Then
@@ -72,10 +95,13 @@
 //     and w (B, N) float32, out (B, 4, 4) float32.
 //   ransac_refine_f32(src, dst, w_depth, src_cov, dst_cov, valid, T_in,
 //     inl_in, T_out, inl_out, n_out, rmse_out, B, M, iterations,
-//     max_mahal_sq, stream): src, dst, src_cov, dst_cov (B, M, 3) and
+//     max_mahal_sq, proj_iterations, fx, fy, cx, cy, sigma_depth,
+//     landmarks, stream): src, dst, src_cov, dst_cov (B, M, 3) and
 //     w_depth (B, M) float32; valid, inl_in, inl_out (B, M) bytes (0/1);
 //     T_in, T_out (B, 4, 4) float32; n_out (B,) int32; rmse_out (B,)
-//     float32; M <= REFINE_MAX_M.
+//     float32; M <= REFINE_MAX_M; landmarks (B, M, 3) float64 scratch,
+//     needed only where proj_iterations > 0 (fx .. cx, cy the
+//     full-resolution intrinsics of the projective stage).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -362,7 +388,234 @@ __device__ int gate(const double (&T)[12], const Matches& m, uint64_t valid, int
   return count;
 }
 
-template <bool STAGED>
+// ---- the projective stage -----------------------------------------------
+
+struct ProjParams {
+  int iterations;
+  double fx, fy, cx, cy, sigma_depth;
+};
+
+constexpr double PROJ_DAMPING = 1e-6;
+constexpr int PROJ_TERMS = 27;  // the 6x6 pose system: 21 upper-triangle terms + 6
+
+// (u, v, z) of a camera-frame point (ops/projective.uvz_from_xyz)
+__device__ void uvz3(const float* x, const ProjParams& pp, double (&o)[3]) {
+  const double x0 = x[0], x1 = x[1], x2 = x[2];
+  const double z = fabs(x2) < 1e-6 ? 1e-6 : x2;
+  o[0] = pp.fx * x0 / z + pp.cx;
+  o[1] = pp.fy * x1 / z + pp.cy;
+  o[2] = x2;
+}
+
+// diag(1, 1, 1/sigma_z^2), sigma_z = sigma_depth max(z, 0.3)^2
+__device__ void info3(double z, const ProjParams& pp, double (&W)[3]) {
+  const double zc = z > 0.3 ? z : 0.3;
+  const double sz = pp.sigma_depth * zc * zc;
+  W[0] = 1.0;
+  W[1] = 1.0;
+  W[2] = 1.0 / (sz * sz);
+}
+
+// The residual (u(q) - u, v(q) - v, qz - z) of one observation and rows 0
+// and 1 of its Jacobian in q (row 2 is (0, 0, 1)); ops/projective.py
+// _proj_residual_jac.
+__device__ void proj_residual(const double (&q)[3], const double (&meas)[3],
+                              const ProjParams& pp, double (&r)[3], double (&J)[2][3]) {
+  const double qz = fabs(q[2]) < 1e-6 ? 1e-6 : q[2];
+  r[0] = pp.fx * q[0] / qz + pp.cx - meas[0];
+  r[1] = pp.fy * q[1] / qz + pp.cy - meas[1];
+  r[2] = q[2] - meas[2];
+  J[0][0] = pp.fx / qz;
+  J[0][1] = 0.0;
+  J[0][2] = -pp.fx * q[0] / (qz * qz);
+  J[1][0] = 0.0;
+  J[1][1] = pp.fy / qz;
+  J[1][2] = -pp.fy * q[1] / (qz * qz);
+}
+
+// b <- A^-1 b by Gaussian elimination with partial pivoting (A destroyed);
+// a zero pivot gives non-finite values, which the callers' guards see.
+template <int N>
+__device__ void solve_pivoted(double (&A)[N][N], double (&b)[N]) {
+  for (int c = 0; c < N; ++c) {
+    int piv = c;
+    for (int r = c + 1; r < N; ++r)
+      if (fabs(A[r][c]) > fabs(A[piv][c])) piv = r;
+    if (piv != c) {
+      for (int k = 0; k < N; ++k) {
+        const double t = A[c][k];
+        A[c][k] = A[piv][k];
+        A[piv][k] = t;
+      }
+      const double t = b[c];
+      b[c] = b[piv];
+      b[piv] = t;
+    }
+    for (int r = c + 1; r < N; ++r) {
+      const double f = A[r][c] / A[c][c];
+      for (int k = c; k < N; ++k) A[r][k] -= f * A[c][k];
+      b[r] -= f * b[c];
+    }
+  }
+  for (int r = N - 1; r >= 0; --r) {
+    double s = b[r];
+    for (int k = r + 1; k < N; ++k) s -= A[r][k] * b[k];
+    b[r] = s / A[r][r];
+  }
+}
+
+// T (3x4) <- exp_se3(xi) [T; bot] (core/se3.exp_se3, xi = (v, w))
+__device__ void apply_exp_se3(const double (&xi)[6], double (&T)[12], const double (&bot)[4]) {
+  const double w0 = xi[3], w1 = xi[4], w2 = xi[5];
+  const double th2 = w0 * w0 + w1 * w1 + w2 * w2, th = sqrt(th2);
+  const double a = th < 1e-5 ? 1.0 - th2 / 6.0 : sin(th) / th;
+  const double b = th < 1e-4 ? 0.5 - th2 / 24.0 : (1.0 - cos(th)) / th2;
+  const double c = th < 1e-4 ? 1.0 / 6.0 - th2 / 120.0 : (th - sin(th)) / (th2 * th);
+  const double W[3][3] = {{0.0, -w2, w1}, {w2, 0.0, -w0}, {-w1, w0, 0.0}};
+  double W2[3][3], R[3][3], t[3];
+  for (int r = 0; r < 3; ++r)
+    for (int k = 0; k < 3; ++k) W2[r][k] = W[r][0] * W[0][k] + W[r][1] * W[1][k] + W[r][2] * W[2][k];
+  for (int r = 0; r < 3; ++r) {
+    t[r] = 0.0;
+    for (int k = 0; k < 3; ++k) {
+      R[r][k] = (r == k ? 1.0 : 0.0) + a * W[r][k] + b * W2[r][k];
+      t[r] += ((r == k ? 1.0 : 0.0) + b * W[r][k] + c * W2[r][k]) * xi[k];
+    }
+  }
+  double out[12];
+  for (int r = 0; r < 3; ++r)
+    for (int k = 0; k < 4; ++k)
+      out[4 * r + k] = R[r][0] * T[k] + R[r][1] * T[4 + k] + R[r][2] * T[8 + k] + t[r] * bot[k];
+  for (int k = 0; k < 12; ++k) T[k] = out[k];
+}
+
+// The projective stage on T (3x4, double; bot its last row). Every thread
+// of the block calls it. lm: the candidate's (M, 3) landmark scratch.
+__device__ void projective_stage(double (&T)[12], const double (&bot)[4], const Matches& m,
+                                 uint64_t valid, int rounds, double thr, const ProjParams& pp,
+                                 double* __restrict__ lm) {
+  __shared__ double red[RWARPS][PROJ_TERMS];
+  __shared__ double fit[12];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint64_t inl;
+  const int n_before = gate(T, m, valid, rounds, thr, &inl, nullptr);
+  for (int k = 0; k < rounds; ++k) {
+    if (!((inl >> k) & 1u)) continue;
+    const int i = tid + k * RT;
+    double su[3];
+    uvz3(m.src + 3 * i, pp, su);
+    lm[3 * i] = (su[0] - pp.cx) * su[2] / pp.fx;
+    lm[3 * i + 1] = (su[1] - pp.cy) * su[2] / pp.fy;
+    lm[3 * i + 2] = su[2];
+  }
+  double Tp[12];
+  for (int k = 0; k < 12; ++k) Tp[k] = T[k];
+  for (int it = 0; it < pp.iterations; ++it) {
+    double acc[PROJ_TERMS];
+#pragma unroll
+    for (int k = 0; k < PROJ_TERMS; ++k) acc[k] = 0.0;
+    for (int k = 0; k < rounds; ++k) {
+      if (!((inl >> k) & 1u)) continue;
+      const int i = tid + k * RT;
+      double su[3], du[3], Ws[3], Wd[3], p[3], q[3], rs[3], rd[3], Js[2][3], Jq[2][3];
+      uvz3(m.src + 3 * i, pp, su);
+      uvz3(m.dst + 3 * i, pp, du);
+      info3(su[2], pp, Ws);
+      info3(du[2], pp, Wd);
+      for (int c = 0; c < 3; ++c) p[c] = lm[3 * i + c];
+
+      // (a) the landmark's 3x3 step
+      proj_residual(p, su, pp, rs, Js);
+      for (int r = 0; r < 3; ++r) q[r] = Tp[4 * r] * p[0] + Tp[4 * r + 1] * p[1] + Tp[4 * r + 2] * p[2] + Tp[4 * r + 3];
+      proj_residual(q, du, pp, rd, Jq);
+      double Js3[3][3], Jd[3][3];  // full Jacobians in p; Jd = dr/dq R
+      for (int c = 0; c < 3; ++c) {
+        Js3[0][c] = Js[0][c];
+        Js3[1][c] = Js[1][c];
+        Js3[2][c] = c == 2 ? 1.0 : 0.0;
+        Jd[0][c] = Jq[0][0] * Tp[c] + Jq[0][1] * Tp[4 + c] + Jq[0][2] * Tp[8 + c];
+        Jd[1][c] = Jq[1][0] * Tp[c] + Jq[1][1] * Tp[4 + c] + Jq[1][2] * Tp[8 + c];
+        Jd[2][c] = Tp[8 + c];
+      }
+      double H[3][3], g[3];
+      for (int a = 0; a < 3; ++a) {
+        g[a] = 0.0;
+        for (int k2 = 0; k2 < 3; ++k2) g[a] += Ws[k2] * Js3[k2][a] * rs[k2] + Wd[k2] * Jd[k2][a] * rd[k2];
+        for (int c = 0; c < 3; ++c) {
+          double h = a == c ? PROJ_DAMPING : 0.0;
+          for (int k2 = 0; k2 < 3; ++k2) h += Ws[k2] * Js3[k2][a] * Js3[k2][c] + Wd[k2] * Jd[k2][a] * Jd[k2][c];
+          H[a][c] = h;
+        }
+      }
+      solve_pivoted<3>(H, g);
+      for (int c = 0; c < 3; ++c) {
+        p[c] -= g[c];
+        lm[3 * i + c] = p[c];
+      }
+
+      // (b) this match's terms of the pose system: J6 = dr/dq [I | -[q]x]
+      for (int r = 0; r < 3; ++r) q[r] = Tp[4 * r] * p[0] + Tp[4 * r + 1] * p[1] + Tp[4 * r + 2] * p[2] + Tp[4 * r + 3];
+      proj_residual(q, du, pp, rd, Jq);
+      const double mq[3][3] = {{0.0, q[2], -q[1]}, {-q[2], 0.0, q[0]}, {q[1], -q[0], 0.0}};
+      double J6[3][6];
+      for (int r = 0; r < 2; ++r)
+        for (int c = 0; c < 3; ++c) {
+          J6[r][c] = Jq[r][c];
+          J6[r][3 + c] = Jq[r][0] * mq[0][c] + Jq[r][1] * mq[1][c] + Jq[r][2] * mq[2][c];
+        }
+      for (int c = 0; c < 3; ++c) {
+        J6[2][c] = c == 2 ? 1.0 : 0.0;
+        J6[2][3 + c] = mq[2][c];
+      }
+      int idx = 0;
+      for (int a = 0; a < 6; ++a) {
+        for (int c = a; c < 6; ++c, ++idx)
+          acc[idx] += Wd[0] * J6[0][a] * J6[0][c] + Wd[1] * J6[1][a] * J6[1][c] + Wd[2] * J6[2][a] * J6[2][c];
+        acc[21 + a] += Wd[0] * J6[0][a] * rd[0] + Wd[1] * J6[1][a] * rd[1] + Wd[2] * J6[2][a] * rd[2];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PROJ_TERMS; ++k)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < PROJ_TERMS; ++k) red[warp][k] = acc[k];
+    __syncthreads();
+    if (tid == 0) {
+      double tot[PROJ_TERMS];
+      for (int k = 0; k < PROJ_TERMS; ++k) {
+        tot[k] = 0.0;
+        for (int w = 0; w < RWARPS; ++w) tot[k] += red[w][k];
+      }
+      double H6[6][6], xi[6];
+      int idx = 0;
+      for (int a = 0; a < 6; ++a)
+        for (int c = a; c < 6; ++c, ++idx) H6[a][c] = H6[c][a] = tot[idx] + (a == c ? PROJ_DAMPING : 0.0);
+      for (int a = 0; a < 6; ++a) xi[a] = tot[21 + a];
+      solve_pivoted<6>(H6, xi);
+      double nrm2 = 0.0;
+      bool finite = true;
+      for (int a = 0; a < 6; ++a) {
+        xi[a] = -xi[a];
+        finite = finite && fabs(xi[a]) < 1e300;  // false for inf and NaN
+        nrm2 += xi[a] * xi[a];
+      }
+      // a degenerate system (few or collinear inliers) must not blow up
+      if (!(finite && sqrt(nrm2) < 1.0))
+        for (int a = 0; a < 6; ++a) xi[a] = 0.0;
+      apply_exp_se3(xi, Tp, bot);
+      for (int k = 0; k < 12; ++k) fit[k] = Tp[k];
+    }
+    __syncthreads();
+    for (int k = 0; k < 12; ++k) Tp[k] = fit[k];
+  }
+  uint64_t bits;
+  if (gate(Tp, m, valid, rounds, thr, &bits, nullptr) >= n_before)
+    for (int k = 0; k < 12; ++k) T[k] = Tp[k];
+}
+
+template <bool STAGED, bool PROJ>
 __global__ void __launch_bounds__(RT)
 refine_kernel(const float* __restrict__ src, const float* __restrict__ dst,
               const float* __restrict__ w_depth, const float* __restrict__ src_cov,
@@ -370,7 +623,7 @@ refine_kernel(const float* __restrict__ src, const float* __restrict__ dst,
               const float* __restrict__ T_in, const unsigned char* __restrict__ inl_in,
               float* __restrict__ T_out, unsigned char* __restrict__ inl_out,
               int* __restrict__ n_out, float* __restrict__ rmse_out, int M, int iterations,
-              double thr) {
+              double thr, ProjParams pp, double* __restrict__ landmarks) {
   extern __shared__ float stage[];
   __shared__ double red[RWARPS][16];
   __shared__ double fit[12];  // the fitted T (3x4), broadcast by warp 0
@@ -499,6 +752,12 @@ refine_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     }
   }
 
+  if constexpr (PROJ) {
+    double bot[4];  // T's last row, as the plain version multiplies it
+    for (int k = 0; k < 4; ++k) bot[k] = replaced ? (k == 3 ? 1.0 : 0.0) : T_in[b * 16 + 12 + k];
+    projective_stage(T, bot, m, vbits, rounds, thr, pp, landmarks + b * M * 3);
+  }
+
   // the final gate of T: inliers, their count and rmse
   double m2_sum = 0.0;
   uint64_t bits;
@@ -535,17 +794,29 @@ extern "C" int ransac_refine_f32(const float* src, const float* dst, const float
                                  const unsigned char* valid, const float* T_in,
                                  const unsigned char* inl_in, float* T_out,
                                  unsigned char* inl_out, int* n_out, float* rmse_out, int B,
-                                 int M, int iterations, double max_mahal_sq, void* stream) {
-  if (B < 1 || M < 0 || M > REFINE_MAX_M || iterations < 0) return -2;
+                                 int M, int iterations, double max_mahal_sq, int proj_iterations,
+                                 double fx, double fy, double cx, double cy, double sigma_depth,
+                                 double* landmarks, void* stream) {
+  if (B < 1 || M < 0 || M > REFINE_MAX_M || iterations < 0 || proj_iterations < 0) return -2;
+  if (proj_iterations > 0 && landmarks == nullptr) return -2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t stage_bytes = static_cast<size_t>(STAGE_FLOATS) * M * sizeof(float);
-  if (stage_bytes <= STAGE_MAX_BYTES)
-    refine_kernel<true><<<B, RT, stage_bytes, s>>>(src, dst, w_depth, src_cov, dst_cov, valid,
-                                                   T_in, inl_in, T_out, inl_out, n_out,
-                                                   rmse_out, M, iterations, max_mahal_sq);
-  else
-    refine_kernel<false><<<B, RT, 0, s>>>(src, dst, w_depth, src_cov, dst_cov, valid, T_in,
-                                          inl_in, T_out, inl_out, n_out, rmse_out, M,
-                                          iterations, max_mahal_sq);
+  const bool staged = stage_bytes <= STAGE_MAX_BYTES;
+  const ProjParams pp{proj_iterations, fx, fy, cx, cy, sigma_depth};
+#define REFINE_LAUNCH(ST, PJ)                                                                   \
+  refine_kernel<ST, PJ><<<B, RT, ST ? stage_bytes : 0, s>>>(                                   \
+      src, dst, w_depth, src_cov, dst_cov, valid, T_in, inl_in, T_out, inl_out, n_out,          \
+      rmse_out, M, iterations, max_mahal_sq, pp, landmarks)
+  if (proj_iterations == 0) {
+    if (staged)
+      REFINE_LAUNCH(true, false);
+    else
+      REFINE_LAUNCH(false, false);
+  } else if (staged) {
+    REFINE_LAUNCH(true, true);
+  } else {
+    REFINE_LAUNCH(false, true);
+  }
+#undef REFINE_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,11 +11,18 @@ host reads the packed (4B+2,) summary later, at a drain.
 Node ids, the predecessor id and the first edge slot are (1,) long device
 tensors, and every write indexes with them (``index_copy_``), so the
 step's kernels do not depend on the frame: :class:`StepGraph` captures
-``slam_stepN`` once per (n, FAST threshold, wire length) and replays it
-for every later group, with the group's inputs copied into static buffers
-first. The capture needs a step without host syncs: the RANSAC refits and
-final score run in one kernel launch (``csrc/kabsch.cu``'s
-``ransac_refine_f32``), not through cuSOLVER.
+``slam_stepN`` once per (n, FAST threshold, wire length, step options) and
+replays it for every later group, with the group's inputs copied into
+static buffers first. Under the delta wire (``tpu_wire_delta``) every wire
+is padded to the I length and carries an I/P flag read on the device, and
+the previous frame's wire codes live in two device tensors that each step
+reads and overwrites, so one graph serves every I/P pattern. With
+``edge_info_mode="hessian"`` the visual edges carry the GN pose
+information, trace-matched to the scalar magnitude (JAX
+``_compute_body``'s hessian branch). The capture needs a step without
+host syncs: the RANSAC refits, the projective stage and the final score
+run in one kernel launch (``csrc/kabsch.cu``'s ``ransac_refine_f32``), not
+through cuSOLVER.
 
 ``commit_node`` is the in-place write shared with the host-decision path
 (JAX ``manager._commit_node``).
@@ -34,7 +41,7 @@ from ..core import alignment
 from ..ops import detect, registration
 from ..optim.pose_graph import GraphState
 from .compare import compare_to_candidates
-from .ingest import prepare_and_extract
+from .ingest import prepare_and_extract, prepare_and_extract_wire
 from .node_store import NodeStore
 
 
@@ -95,6 +102,8 @@ def slam_step(
     cand_dt: torch.Tensor,  # (B,) float32 |t_new - t_cand|
     edge_start: torch.Tensor,  # (1,) long
     generator: torch.Generator,
+    intra: torch.Tensor = None,  # () u8, nonzero for an I wire (delta wire only)
+    wire=None,  # delta wire: (luma codes u8 (H, W), depth codes int32 (h, w)), in place
     *,
     extractor,
     cam,
@@ -102,6 +111,8 @@ def slam_step(
     stride: int,
     depth_bits: int,
     dct,
+    gray_bits: int,
+    fmt: str,
     min_depth: float,
     max_depth: float,
     max_matches: int,
@@ -113,6 +124,9 @@ def slam_step(
     sigma_depth: float,
     sample_size: int,
     refine_iterations: int,
+    projective_iterations: int,
+    emm_exact: bool,
+    edge_info_mode: str,
     observability_threshold: float,
     max_translation_per_s: float,
     max_rotation_deg_per_s: float,
@@ -121,15 +135,22 @@ def slam_step(
 ) -> torch.Tensor:
     """One frame, written into store/graph in place. Returns the (4B+2,)
     float32 summary on the device."""
-    kp, depth_small, color_small = prepare_and_extract(
-        extractor, cam, stride, min_depth, max_depth, use_feature_min_depth,
-        packed, depth_bits, dct)
+    if wire is None:
+        kp, depth_small, color_small = prepare_and_extract(
+            extractor, cam, stride, min_depth, max_depth, use_feature_min_depth,
+            packed, depth_bits, dct, gray_bits, fmt)
+    else:
+        kp, depth_small, color_small = prepare_and_extract_wire(
+            extractor, cam, stride, min_depth, max_depth, use_feature_min_depth,
+            packed, intra != 0, wire)
     res = compare_to_candidates(
         kp, depth_small, store, cand_idx, generator, cam_small,
         cam_fx=cam.fx, cam_fy=cam.fy, max_matches=max_matches, ratio=ratio,
         n_hypotheses=n_hypotheses, max_mahal_sq=max_mahal_sq,
         min_inliers=min_inliers, emm_skip=emm_skip, sigma_depth=sigma_depth,
         sample_size=sample_size, refine_iterations=refine_iterations,
+        projective_iterations=projective_iterations, cam_cx=cam.cx, cam_cy=cam.cy,
+        emm_exact=emm_exact, edge_info_mode=edge_info_mode,
     )
     dev = packed.device
     B = cand_idx.shape[0]
@@ -162,6 +183,14 @@ def slam_step(
     info_scale = res.n_inliers.float() / torch.clamp(res.rmse * res.rmse, min=1e-4)
     eye6 = torch.eye(6, device=dev)
     vis_info = info_scale[:, None, None] * eye6
+    if edge_info_mode == "hessian":
+        # the GN information trace-matched to the scalar magnitude, so the
+        # protocol's chi2 prune thresholds keep their calibration; a
+        # degenerate or rejected candidate keeps the scalar identity
+        tr6 = res.info6.diagonal(dim1=-2, dim2=-1).sum(dim=-1) / 6.0
+        hess = res.info6 * (info_scale / torch.clamp(tr6, min=1e-12))[:, None, None]
+        ok_info = torch.isfinite(hess).flatten(1).all(dim=-1) & (tr6 > 0)
+        vis_info = torch.where(ok_info[:, None, None], hess, vis_info)
     fallback = ~any_acc  # keep_all: a constant-position edge when none accepted
     e_i = torch.cat([cand_idx, pred_id]).to(torch.int32)
     e_meas = torch.cat([T, eye4[None]], dim=0)
@@ -189,15 +218,16 @@ class GroupInputs(NamedTuple):
     cand_idx: torch.Tensor  # (n, B) long
     cand_dt: torch.Tensor  # (n, B) float32
     cand_dup: torch.Tensor  # (n, B) u8, nonzero for padding duplicates
+    intra: torch.Tensor  # (n,) u8, nonzero for an I wire (read under the delta wire)
 
 
 def _layout(n: int, L: int, B: int) -> Tuple[int, int, int, int]:
-    """Byte offsets of the long block, the float block and the dup bytes in
-    the flat input buffer of GroupInputs, and its size."""
+    """Byte offsets of the long block, the float block and the dup and
+    intra bytes in the flat input buffer of GroupInputs, and its size."""
     off_long = -(-n * L // 8) * 8
     off_f32 = off_long + 8 * (3 * n + n * B)
     off_dup = off_f32 + 4 * n * B
-    return off_long, off_f32, off_dup, off_dup + n * B
+    return off_long, off_f32, off_dup, off_dup + n * B + n
 
 
 def group_views(flat: torch.Tensor, n: int, L: int, B: int) -> GroupInputs:
@@ -209,15 +239,17 @@ def group_views(flat: torch.Tensor, n: int, L: int, B: int) -> GroupInputs:
         new_ids=longs[:n], pred_ids=longs[n : 2 * n], edge_starts=longs[2 * n : 3 * n],
         cand_idx=longs[3 * n :].view(n, B),
         cand_dt=flat[off_f32:off_dup].view(torch.float32).view(n, B),
-        cand_dup=flat[off_dup:size].view(n, B),
+        cand_dup=flat[off_dup : size - n].view(n, B),
+        intra=flat[size - n : size],
     )
 
 
 def pack_group(packed: np.ndarray, new_ids, cand_idx, cand_dup, cand_dt, edge_starts,
-               pin: bool) -> torch.Tensor:
+               pin: bool, intra=None) -> torch.Tensor:
     """One flat u8 host buffer (pinned when `pin`) holding a group's inputs:
     packed (n, L) u8 wires, and per frame its id (pred = id - 1), B
-    candidates, dup flags, dt and first edge slot."""
+    candidates, dup flags, dt, first edge slot and I-wire flag (0 where
+    `intra` is None)."""
     n, L = packed.shape
     B = len(cand_idx[0])
     flat = torch.empty(_layout(n, L, B)[3], dtype=torch.uint8, pin_memory=pin)
@@ -229,21 +261,33 @@ def pack_group(packed: np.ndarray, new_ids, cand_idx, cand_dup, cand_dt, edge_st
     g.cand_idx.numpy()[:] = cand_idx
     g.cand_dt.numpy()[:] = cand_dt
     g.cand_dup.numpy()[:] = cand_dup
+    g.intra.numpy()[:] = 0 if intra is None else intra
     return flat
 
 
 def slam_stepN(store: NodeStore, graph: GraphState, g: GroupInputs,
-               generator: torch.Generator, **cfg) -> torch.Tensor:
+               generator: torch.Generator, wire=None, **cfg) -> torch.Tensor:
     """n consecutive frames in order; frame k's comparison reads frame
-    k-1's freshly committed row (JAX make_slam_stepN). Returns the (n,
+    k-1's freshly committed row, and under the delta wire its decode
+    predicts from frame k-1's codes (JAX make_slam_stepN). Returns the (n,
     4B+2) summaries."""
     sums = []
     for k in range(g.packed.shape[0]):
         sl = slice(k, k + 1)
         sums.append(slam_step(
             store, graph, g.packed[k], g.new_ids[sl], g.pred_ids[sl], g.cand_idx[k],
-            g.cand_dup[k] != 0, g.cand_dt[k], g.edge_starts[sl], generator, **cfg))
+            g.cand_dup[k] != 0, g.cand_dt[k], g.edge_starts[sl], generator, g.intra[k], wire,
+            **cfg))
     return torch.stack(sums)
+
+
+def step_key(n: int, L: int, cfg: dict, wire) -> tuple:
+    """What a captured step depends on besides its inputs: the group size,
+    the FAST threshold (None for SIFT), the wire length and the step's
+    options."""
+    return (n, getattr(cfg["extractor"], "fast_threshold", None), L, cfg["fmt"],
+            cfg["gray_bits"], cfg["depth_bits"], cfg["projective_iterations"], cfg["emm_exact"],
+            cfg["edge_info_mode"], wire is not None)
 
 
 # modules whose LAUNCHES count kernel launches; a capture records its
@@ -264,8 +308,10 @@ class _Captured:
 
 
 class StepGraph:
-    """slam_stepN on the card as CUDA graphs, one per (n, FAST threshold,
-    wire length); SIFT has no FAST threshold (None in the key).
+    """slam_stepN on the card as CUDA graphs, one per step_key (n, FAST
+    threshold, wire length, step options); SIFT has no FAST threshold (None
+    in the key). Under the delta wire `wire` is the manager's pair of code
+    tensors, which every replay reads and overwrites.
 
     The first group of a key runs eagerly, on a side stream between two
     synchronisations: it warms every lazily built constant and library
@@ -276,8 +322,9 @@ class StepGraph:
     raises: there is no eager fallback on the card. A replay adds the
     kernel launches its capture recorded to those kernels' launch counts."""
 
-    def __init__(self, store: NodeStore, graph: GraphState, generator: torch.Generator):
-        self.store, self.graph, self.generator = store, graph, generator
+    def __init__(self, store: NodeStore, graph: GraphState, generator: torch.Generator,
+                 wire=None):
+        self.store, self.graph, self.generator, self.wire = store, graph, generator, wire
         self._seen = set()
         self._graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
@@ -289,7 +336,7 @@ class StepGraph:
         """Run one group whose inputs are `host_flat` (pack_group, pinned);
         returns its (n, 4B+2) summaries in a tensor of their own."""
         dev = self.store.uv.device
-        key = (n, getattr(cfg["extractor"], "fast_threshold", None), L)
+        key = step_key(n, L, cfg, self.wire)
         cap = self._graphs.get(key)
         if cap is None and key not in self._seen:
             self._seen.add(key)
@@ -299,7 +346,7 @@ class StepGraph:
             torch.cuda.synchronize(dev)
             with torch.cuda.stream(side):
                 out = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
-                                 self.generator, **cfg)
+                                 self.generator, self.wire, **cfg)
             torch.cuda.synchronize(dev)
             return out
         if cap is None:
@@ -328,7 +375,8 @@ class StepGraph:
         gc.disable()
         try:
             with torch.cuda.graph(cap.graph):
-                cap.out = slam_stepN(self.store, self.graph, cap.inputs, self.generator, **cfg)
+                cap.out = slam_stepN(self.store, self.graph, cap.inputs, self.generator,
+                                     self.wire, **cfg)
         finally:
             if gc_on:
                 gc.enable()

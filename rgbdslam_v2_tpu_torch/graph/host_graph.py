@@ -125,8 +125,13 @@ def build_edges(padded: List[int], accepted: List[int], cmp, pred_id: int, new_i
         for b in accepted:
             cid = padded[b]
             info_scale = float(cmp.n_inliers[b]) / max(float(cmp.rmse[b]) ** 2, 1e-4)
-            edges.append((cid, new_id, np.asarray(cmp.transform[b], np.float32),
-                          np.eye(6, dtype=np.float32) * info_scale,
+            info = np.eye(6, dtype=np.float32) * info_scale
+            if cmp.info6 is not None:  # tpu_edge_info=hessian, trace-matched
+                h6 = np.asarray(cmp.info6[b], np.float32)
+                tr = float(np.trace(h6)) / 6.0
+                if np.isfinite(h6).all() and tr > 0:
+                    info = h6 * (info_scale / tr)
+            edges.append((cid, new_id, np.asarray(cmp.transform[b], np.float32), info,
                           edge_type(cid, pred_id, geodesic)))
     for cid, (T, info, _n, _rmse) in (icp or {}).items():
         edges.append((cid, new_id, T, info, edge_type(cid, pred_id, geodesic)))

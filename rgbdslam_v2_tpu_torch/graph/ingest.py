@@ -1,22 +1,31 @@
-"""The yc12 and ydct ingest wires: host packing and device unpacking.
+"""The ingest wires: host packing and device unpacking.
 
-Port of the yc12 and ydct parts of ``rgbdslam_v2_tpu/graph/manager.py``:
+Port of the wire parts of ``rgbdslam_v2_tpu/graph/manager.py``:
 
-* host side: ``maybe_scale_depth``, ``compact_frame`` (its yc12 branch
-  with gray_bits 8 and its ydct branch), through the native C encoder (``io/native_compact.py``)
-  as the JAX package does, with the numpy encoder as the plain version and
-  the fallback for layouts the C code refuses: ``compact_frame_numpy``,
-  ``_d10_lut``/``_pack10``, ``_d12_lut``/``_pack12``, ``_chroma_mult``;
-* device side, torch: ``_unpack_yc12`` (8-bit and DCT luma),
-  ``_decode_color_small`` and ``_finish_yc12`` (depth masking,
-  feature-depth plane, extraction).
+* host side: ``maybe_scale_depth``, ``compact_frame`` (yc12 with 8-, 6- or
+  5-bit luma, ydct, raw), through the native C encoder
+  (``io/native_compact.py``) as the JAX package does, with the numpy
+  encoder as the plain version and the fallback for layouts the C code
+  refuses: ``compact_frame_numpy``, ``_d10_lut``/``_pack10``,
+  ``_d12_lut``/``_pack12``, ``_dither6``, ``_pack6``, ``_pack5_codes``/
+  ``_pack5``, ``_pack4``, ``_chroma_mult``; the temporal-delta (P-frame)
+  encoder ``delta_encode`` and its state mirror ``host_unpack_codes``;
+  ``wire_intra_len`` and ``wire_delta_len``;
+* device side, torch: ``unpack_yc12`` (8-, 6- and 5-bit and DCT luma),
+  ``unpack_raw``, ``unpack_yc12_delta``, ``_decode_color_small`` and
+  ``finish_yc12`` (depth masking, feature-depth plane, extraction);
+  ``prepare_and_extract`` and, for the delta wire, ``prepare_and_extract_wire``.
 
 Wire layout: [luma | sqrt-coded depth at stride s (10 or 12 bits) | Cb | Cr
-at stride cm*s]. The luma is H*W u8 bytes (yc12) or the fixed-rate block-DCT
-planes of ``ops/dct_wire.py`` (ydct, chosen by passing its ``DctSpec``).
-Native yc12 bytes equal the numpy bytes; native ydct codes may differ from
-the numpy codes by 1 at ~2e-3 of positions, mostly DC codes on an exact .5
-tie (``io/native_compact.py``).
+at stride cm*s]. The luma is H*W u8 bytes (8 bits), Bayer-dithered 6- or
+5-bit codes packed 4 px in 3 B or 8 px in 5 B, or the fixed-rate block-DCT
+planes of ``ops/dct_wire.py`` (ydct, chosen by passing its ``DctSpec``). The
+raw wire is [gray u8 | depth u16 at full resolution | colour at stride s].
+A delta (P) wire is [4-bit luma-code residuals | 5-bit depth-code residuals
+| Cb | Cr] against the previous frame's reconstructed 6/10-bit codes.
+Native yc12 and delta bytes equal the numpy bytes; native ydct codes may
+differ from the numpy codes by 1 at ~2e-3 of positions, mostly DC codes on
+an exact .5 tie (``io/native_compact.py``).
 ``ENCODES`` counts host encodes by route. The JAX uint32 shifts are int32
 ops here.
 """
@@ -92,6 +101,168 @@ def _chroma_mult(H: int, W: int, stride: int) -> int:
     return 4 if (H % cs == 0 and W % cs == 0) else 2
 
 
+def _chroma_plane(H: int, W: int, stride: int) -> int:
+    """Samples of one chroma plane (Cb or Cr) at stride cm*s."""
+    cs = _chroma_mult(H, W, stride) * stride
+    return (H // cs) * (W // cs)
+
+
+def _pack6(gray8: np.ndarray) -> np.ndarray:
+    """(N,) u8 gray, N % 4 == 0 -> (3N/4,) u8: 6-bit luma, 4 px per 3 B."""
+    a = (gray8.reshape(-1, 4) >> 2).astype(np.uint8)
+    out = np.empty((a.shape[0], 3), np.uint8)
+    out[:, 0] = a[:, 0] | ((a[:, 1] & 0x03) << 6)
+    out[:, 1] = (a[:, 1] >> 2) | ((a[:, 2] & 0x0F) << 4)
+    out[:, 2] = (a[:, 2] >> 4) | (a[:, 3] << 2)
+    return out.reshape(-1)
+
+
+def _pack5_codes(codes: np.ndarray) -> np.ndarray:
+    """(N,) u8 values < 32, N % 8 == 0 -> (5N/8,) u8 little-endian bit
+    stream (the 5-bit luma and the depth-residual wires)."""
+    a = codes.reshape(-1, 8).astype(np.uint8)
+    out = np.empty((a.shape[0], 5), np.uint8)
+    out[:, 0] = a[:, 0] | ((a[:, 1] & 0x07) << 5)
+    out[:, 1] = (a[:, 1] >> 3) | (a[:, 2] << 2) | ((a[:, 3] & 0x01) << 7)
+    out[:, 2] = (a[:, 3] >> 1) | ((a[:, 4] & 0x0F) << 4)
+    out[:, 3] = (a[:, 4] >> 4) | (a[:, 5] << 1) | ((a[:, 6] & 0x03) << 6)
+    out[:, 4] = (a[:, 6] >> 2) | (a[:, 7] << 3)
+    return out.reshape(-1)
+
+
+def _pack5(gray8: np.ndarray) -> np.ndarray:
+    """(N,) u8 gray, N % 8 == 0 -> (5N/8,) u8: 5-bit luma, 8 px per 5 B."""
+    return _pack5_codes(gray8 >> 3)
+
+
+def _pack4(codes: np.ndarray) -> np.ndarray:
+    """(N,) u8 values < 16, N % 2 == 0 -> (N/2,) u8, low nibble first."""
+    a = codes.reshape(-1, 2)
+    return (a[:, 0] | (a[:, 1] << 4)).astype(np.uint8)
+
+
+_BAYER4 = np.array([[0, 8, 2, 10], [12, 4, 14, 6], [3, 11, 1, 9], [15, 7, 13, 5]], np.uint16)
+
+
+@functools.lru_cache(maxsize=None)
+def _dither_plane(H: int, W: int, bits: int) -> np.ndarray:
+    return (_BAYER4[np.arange(H)[:, None] % 4, np.arange(W)[None, :] % 4]
+            >> (bits - 4)).astype(np.int16)
+
+
+def _dither6(gray8: np.ndarray, bits: int = 6) -> np.ndarray:
+    """Ordered (Bayer 4x4) dither of one quantization step before the
+    `bits`-bit truncation; the g >> bits term cancels the decoder's
+    bit-replication bias."""
+    H, W = gray8.shape
+    g = gray8.astype(np.int16)
+    return np.clip(g + _dither_plane(H, W, bits) - (g >> bits), 0, 255).astype(np.uint8)
+
+
+def _gray8(rgb: np.ndarray) -> np.ndarray:
+    """u8 luma of an RGB or grey frame (the native encoder's BT.601
+    fixed-point formula)."""
+    if rgb.ndim == 3:
+        r16 = rgb.astype(np.uint16)
+        return ((r16[..., 0] * 77 + r16[..., 1] * 150 + r16[..., 2] * 29) >> 8).astype(np.uint8)
+    if rgb.dtype == np.uint8:
+        return rgb
+    scale = 255.0 if rgb.dtype.kind == "f" else 1.0
+    return np.clip(rgb * scale, 0, 255).astype(np.uint8)
+
+
+def _d16(depth: np.ndarray) -> np.ndarray:
+    """u16 depth counts of a u16 or metres frame."""
+    if depth.dtype == np.uint16:
+        return depth
+    d = np.nan_to_num(depth, nan=0.0, posinf=0.0, neginf=0.0)
+    return np.clip(d * DEPTH_SCALE, 0, 65535).astype(np.uint16)
+
+
+def _chroma(rgb: np.ndarray, H: int, W: int, cs: int) -> np.ndarray:
+    """Cb and Cr planes at stride cs (BT.601), 128 for a grey frame."""
+    if rgb.ndim == 3:
+        sub = rgb[::cs, ::cs].astype(np.float32)
+        r, g, b = sub[..., 0], sub[..., 1], sub[..., 2]
+        cb = np.clip(128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b, 0, 255).astype(np.uint8)
+        cr = np.clip(128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b, 0, 255).astype(np.uint8)
+    else:
+        cb = np.full((H // cs, W // cs), 128, np.uint8)
+        cr = np.full((H // cs, W // cs), 128, np.uint8)
+    return np.concatenate([cb.reshape(-1), cr.reshape(-1)])
+
+
+def wire_intra_len(H: int, W: int, stride: int, gray_bits: int = 6, depth_bits: int = 10) -> int:
+    """Byte length of one yc12 (I) wire."""
+    n_gray = {8: H * W, 6: (H * W // 4) * 3, 5: (H * W // 8) * 5}[gray_bits]
+    h, w = H // stride, W // stride
+    n_d = (h * w // 4) * 5 if depth_bits == 10 else (h * w // 2) * 3
+    return n_gray + n_d + 2 * _chroma_plane(H, W, stride)
+
+
+def wire_delta_len(H: int, W: int, stride: int) -> int:
+    """Byte length of one temporal-delta (P) wire: 4-bit luma residuals,
+    5-bit depth-code residuals and the absolute chroma tail."""
+    h, w = H // stride, W // stride
+    return H * W // 2 + (h * w // 8) * 5 + 2 * _chroma_plane(H, W, stride)
+
+
+def host_unpack_codes(packed: np.ndarray, H: int, W: int, stride: int):
+    """The 6-bit luma codes (H, W) u8 and 10-bit depth codes (h, w) u16 of
+    an I wire: the delta encoder's state mirror, read back off the buffer
+    so that it matches the device's reconstruction whatever encoded it."""
+    n_gray = (H * W // 4) * 3
+    g = packed[:n_gray].reshape(-1, 3).astype(np.uint16)
+    qg = np.stack([g[:, 0] & 0x3F, (g[:, 0] >> 6) | ((g[:, 1] & 0x0F) << 2),
+                   (g[:, 1] >> 4) | ((g[:, 2] & 0x03) << 4), g[:, 2] >> 2],
+                  axis=-1).reshape(H, W).astype(np.uint8)
+    h, w = H // stride, W // stride
+    b = packed[n_gray : n_gray + (h * w // 4) * 5].reshape(-1, 5).astype(np.uint16)
+    qd = np.stack([b[:, 0] | ((b[:, 1] & 0x03) << 8), (b[:, 1] >> 2) | ((b[:, 2] & 0x0F) << 6),
+                   (b[:, 2] >> 4) | ((b[:, 3] & 0x3F) << 4), (b[:, 3] >> 6) | (b[:, 4] << 2)],
+                  axis=-1).reshape(h, w)
+    return qg, qd
+
+
+def delta_encode(rgb, depth, prev_qg: np.ndarray, prev_qd: np.ndarray, stride: int,
+                 max_clamp: float = 0.02):
+    """The temporal-delta (P) wire of a frame against the mirrored device
+    codes: (packed, new_qg, new_qd), or None where more than max_clamp of
+    the residuals clamp (fast motion, a scene cut: the caller ships an I
+    wire). The native C encoder (which advances prev_qg / prev_qd in place)
+    where it takes the layout, else delta_encode_numpy; counted in
+    ENCODES."""
+    nat = native_compact.compact_delta(rgb, depth, prev_qg, prev_qd, stride, max_clamp)
+    if nat is not None:
+        _count("native")
+        return None if nat == "clamped" else nat
+    _count("numpy")
+    return delta_encode_numpy(rgb, depth, prev_qg, prev_qd, stride, max_clamp)
+
+
+def delta_encode_numpy(rgb, depth, prev_qg: np.ndarray, prev_qd: np.ndarray, stride: int,
+                       max_clamp: float = 0.02):
+    """The plain numpy version of delta_encode (leaves prev_qg / prev_qd as
+    they are)."""
+    rgb = np.asarray(rgb)
+    depth = np.asarray(depth)
+    H, W = depth.shape
+    r = (_dither6(_gray8(rgb)) >> 2).astype(np.int16) - prev_qg.astype(np.int16)
+    rc = np.clip(r, -8, 7)
+    rd = _d10_lut()[_d16(depth)[::stride, ::stride]].astype(np.int32) - prev_qd.astype(np.int32)
+    rdc = np.clip(rd, -16, 15)
+    n_clamp = int(np.count_nonzero(r != rc)) + int(np.count_nonzero(rd != rdc))
+    if n_clamp > max_clamp * (r.size + rd.size):
+        return None
+    new_qg = (prev_qg.astype(np.int16) + rc).astype(np.uint8)
+    new_qd = (prev_qd.astype(np.int32) + rdc).astype(np.uint16)
+    packed = np.concatenate([
+        _pack4((rc + 8).astype(np.uint8).reshape(-1)),
+        _pack5_codes((rdc + 16).astype(np.uint8).reshape(-1)),
+        _chroma(rgb, H, W, _chroma_mult(H, W, stride) * stride)])
+    return packed, new_qg, new_qd
+
+
 def maybe_scale_depth(depth, factor: float):
     """depth_scaling_factor (reference misc.cpp:502, node.cpp:705): scale the
     raw depth before the encoder quantizes it. u16 counts become float32
@@ -105,32 +276,38 @@ def maybe_scale_depth(depth, factor: float):
 
 
 def compact_frame(rgb, depth, stride: int, depth_bits: int = 12,
-                  dct: Optional[DctSpec] = None) -> np.ndarray:
+                  dct: Optional[DctSpec] = None, gray_bits: int = 8,
+                  fmt: str = "yc12") -> np.ndarray:
     """Host encoder: rgb (H, W, 3) u8 or (H, W) gray, depth (H, W) u16
-    counts or float meters -> one packed u8 buffer. yc12 with 8-bit luma,
-    or ydct when `dct` names the luma's rate/quality point (H and W
-    divisible by 8, else ValueError). The native C encoder where it takes
-    the layout, else compact_frame_numpy; counted in ENCODES."""
+    counts or float meters -> one packed u8 buffer. yc12 with 8-, 6- or
+    5-bit luma (gray_bits), ydct when `dct` names the luma's rate/quality
+    point (H and W divisible by 8, else ValueError), or fmt="raw". The
+    native C encoder where it takes the layout, else compact_frame_numpy;
+    counted in ENCODES."""
     if depth_bits not in (10, 12):
         raise NotImplementedError(f"tpu_depth_bits={depth_bits} (10 or 12)")
     depth = np.asarray(depth)
     H, W = depth.shape
     if dct is not None:
         check_shape(H, W)
-    cm = _chroma_mult(H, W, stride)
-    out = (native_compact.compact_yc12(rgb, depth, stride, depth_bits, cm) if dct is None
-           else native_compact.compact_ydct(rgb, depth, stride, depth_bits, cm, dct))
+    out = None
+    if fmt != "raw":
+        cm = _chroma_mult(H, W, stride)
+        out = (native_compact.compact_yc12(rgb, depth, stride, depth_bits, cm, gray_bits)
+               if dct is None else
+               native_compact.compact_ydct(rgb, depth, stride, depth_bits, cm, dct))
     if out is not None:
         _count("native")
         return out
     _count("numpy")
-    return compact_frame_numpy(rgb, depth, stride, depth_bits, dct)
+    return compact_frame_numpy(rgb, depth, stride, depth_bits, dct, gray_bits, fmt)
 
 
 def compact_frame_numpy(rgb, depth, stride: int, depth_bits: int = 12,
-                        dct: Optional[DctSpec] = None) -> np.ndarray:
+                        dct: Optional[DctSpec] = None, gray_bits: int = 8,
+                        fmt: str = "yc12") -> np.ndarray:
     """The plain numpy encoder of compact_frame (the JAX package's numpy
-    bytes)."""
+    bytes, its grey from the BT.601 fixed-point formula)."""
     if depth_bits not in (10, 12):
         raise NotImplementedError(f"tpu_depth_bits={depth_bits} (10 or 12)")
     rgb = np.asarray(rgb)
@@ -138,32 +315,25 @@ def compact_frame_numpy(rgb, depth, stride: int, depth_bits: int = 12,
     H, W = depth.shape
     if dct is not None:
         check_shape(H, W)
-    if rgb.ndim == 3:
-        r16 = rgb.astype(np.uint16)
-        gray8 = ((r16[..., 0] * 77 + r16[..., 1] * 150 + r16[..., 2] * 29) >> 8).astype(np.uint8)
-    elif rgb.dtype == np.uint8:
-        gray8 = rgb
-    else:
-        scale = 255.0 if rgb.dtype.kind == "f" else 1.0
-        gray8 = np.clip(rgb * scale, 0, 255).astype(np.uint8)
-    if depth.dtype == np.uint16:
-        d16 = depth
-    else:
-        d = np.nan_to_num(depth, nan=0.0, posinf=0.0, neginf=0.0)
-        d16 = np.clip(d * DEPTH_SCALE, 0, 65535).astype(np.uint16)
+    gray8 = _gray8(rgb)
+    d16 = _d16(depth)
+    if fmt == "raw":
+        color = (np.ascontiguousarray(rgb[::stride, ::stride]) if rgb.ndim == 3 else
+                 np.zeros((d16[::stride].shape[0], d16[0, ::stride].shape[0], 3), np.uint8))
+        return np.concatenate([gray8.reshape(-1),
+                               np.ascontiguousarray(d16).view(np.uint8).reshape(-1),
+                               color.reshape(-1)])
     dsub = d16[::stride, ::stride].reshape(-1)
     dq = _pack10(_d10_lut()[dsub]) if depth_bits == 10 else _pack12(_d12_lut()[dsub])
-    cs = _chroma_mult(H, W, stride) * stride
-    if rgb.ndim == 3:
-        sub = rgb[::cs, ::cs].astype(np.float32)
-        r, g, b = sub[..., 0], sub[..., 1], sub[..., 2]
-        cb = np.clip(128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b, 0, 255).astype(np.uint8)
-        cr = np.clip(128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b, 0, 255).astype(np.uint8)
+    if dct is not None:
+        luma = encode_luma_dct(gray8, dct)
+    elif gray_bits == 6:
+        luma = _pack6(_dither6(gray8).reshape(-1))
+    elif gray_bits == 5:
+        luma = _pack5(_dither6(gray8, bits=5).reshape(-1))
     else:
-        cb = np.full((H // cs, W // cs), 128, np.uint8)
-        cr = np.full((H // cs, W // cs), 128, np.uint8)
-    luma = gray8.reshape(-1) if dct is None else encode_luma_dct(gray8, dct)
-    return np.concatenate([luma, dq, cb.reshape(-1), cr.reshape(-1)])
+        luma = gray8.reshape(-1)
+    return np.concatenate([luma, dq, _chroma(rgb, H, W, _chroma_mult(H, W, stride) * stride)])
 
 
 def _decode_color_small(packed, off: int, gray8, stride: int, cm: int,
@@ -183,38 +353,146 @@ def _decode_color_small(packed, off: int, gray8, stride: int, cm: int,
     return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0).to(torch.uint8)
 
 
+def _unpack6_codes(b: torch.Tensor) -> torch.Tensor:
+    """(3K,) u8 -> (4K,) int32 6-bit codes (inverse of _pack6)."""
+    g = b.reshape(-1, 3).to(torch.int32)
+    return torch.stack([g[:, 0] & 0x3F, (g[:, 0] >> 6) | ((g[:, 1] & 0x0F) << 2),
+                        (g[:, 1] >> 4) | ((g[:, 2] & 0x03) << 4), g[:, 2] >> 2],
+                       dim=-1).reshape(-1)
+
+
+def unpack5_codes(b5: torch.Tensor) -> torch.Tensor:
+    """(5K,) u8 -> (8K,) int32 values < 32 (inverse of _pack5_codes)."""
+    b = b5.reshape(-1, 5).to(torch.int32)
+    return torch.stack([
+        b[:, 0] & 0x1F, (b[:, 0] >> 5) | ((b[:, 1] & 0x03) << 3), (b[:, 1] >> 2) & 0x1F,
+        (b[:, 1] >> 7) | ((b[:, 2] & 0x0F) << 1), (b[:, 2] >> 4) | ((b[:, 3] & 0x01) << 4),
+        (b[:, 3] >> 1) & 0x1F, (b[:, 3] >> 6) | ((b[:, 4] & 0x07) << 2), b[:, 4] >> 3,
+    ], dim=-1).reshape(-1)
+
+
+def _unpack10(b: torch.Tensor) -> torch.Tensor:
+    """(5K,) u8 -> (4K,) int32 10-bit depth codes (inverse of _pack10)."""
+    b = b.reshape(-1, 5).to(torch.int32)
+    return torch.stack([b[:, 0] | ((b[:, 1] & 0x03) << 8), (b[:, 1] >> 2) | ((b[:, 2] & 0x0F) << 6),
+                        (b[:, 2] >> 4) | ((b[:, 3] & 0x3F) << 4), (b[:, 3] >> 6) | (b[:, 4] << 2)],
+                       dim=-1).reshape(-1)
+
+
+def _gray6(q: torch.Tensor) -> torch.Tensor:
+    """6-bit luma codes -> u8 grey by bit replication."""
+    return ((q << 2) | (q >> 4)).to(torch.uint8)
+
+
+def _depth10_m(q: torch.Tensor) -> torch.Tensor:
+    """10-bit sqrt depth codes -> metres."""
+    qf = q.float()
+    return qf * qf * (1.0 / (16.0 * DEPTH_SCALE))
+
+
+def _luma_len(H: int, W: int, gray_bits: int, dct: Optional[DctSpec]) -> int:
+    if dct is not None:
+        return dct_luma_len(H, W, dct)
+    return {8: H * W, 6: (H * W // 4) * 3, 5: (H * W // 8) * 5}[gray_bits]
+
+
 def unpack_yc12(packed: torch.Tensor, H: int, W: int, stride: int, depth_bits: int,
-                dct: Optional[DctSpec] = None):
+                dct: Optional[DctSpec] = None, gray_bits: int = 8, return_codes: bool = False):
     """Device inverse of compact_frame: packed u8 -> (gray u8 (H, W),
-    depth_small f32 meters (h, w), color u8 (h, w, 3)). `dct` as given to
-    compact_frame."""
+    depth_small f32 meters (h, w), color u8 (h, w, 3)) [+ the wire codes
+    (6-bit luma u8 (H, W), depth int32 (h, w)) when return_codes: the delta
+    wire's state]. `dct` and gray_bits as given to compact_frame; 6- and
+    5-bit codes decode by bit replication."""
     h, w = H // stride, W // stride
     cm = _chroma_mult(H, W, stride)
     hc, wc = H // (cm * stride), W // (cm * stride)
-    if dct is None:
-        n_gray = H * W
-        gray8 = packed[:n_gray].reshape(H, W)
-    else:
-        n_gray = dct_luma_len(H, W, dct)
+    n_gray = _luma_len(H, W, gray_bits, dct)
+    codes_g = None
+    if dct is not None:
         gray8 = decode_luma_dct_dev(packed[:n_gray], H, W, dct)
+    elif gray_bits == 6:
+        q = _unpack6_codes(packed[:n_gray]).reshape(H, W)
+        gray8 = _gray6(q)
+        codes_g = q.to(torch.uint8)
+    elif gray_bits == 5:
+        q = unpack5_codes(packed[:n_gray]).reshape(H, W)
+        gray8 = ((q << 3) | (q >> 2)).to(torch.uint8)
+        codes_g = q.to(torch.uint8)
+    else:
+        gray8 = packed[:n_gray].reshape(H, W)
     if depth_bits == 10:
         n_d = (h * w // 4) * 5
-        b = packed[n_gray : n_gray + n_d].reshape(-1, 5).to(torch.int32)
-        q0 = b[:, 0] | ((b[:, 1] & 0x03) << 8)
-        q1 = (b[:, 1] >> 2) | ((b[:, 2] & 0x0F) << 6)
-        q2 = (b[:, 2] >> 4) | ((b[:, 3] & 0x3F) << 4)
-        q3 = (b[:, 3] >> 6) | (b[:, 4] << 2)
-        q = torch.stack([q0, q1, q2, q3], dim=-1).reshape(h, w).float()
-        depth_small = q * q * (1.0 / (16.0 * DEPTH_SCALE))
+        qi = _unpack10(packed[n_gray : n_gray + n_d]).reshape(h, w)
+        depth_small = _depth10_m(qi)
     else:
         n_d = (h * w // 2) * 3
         b = packed[n_gray : n_gray + n_d].reshape(-1, 3).to(torch.int32)
         q0 = b[:, 0] | ((b[:, 1] & 0x0F) << 8)
         q1 = (b[:, 1] >> 4) | (b[:, 2] << 4)
-        q = torch.stack([q0, q1], dim=-1).reshape(h, w).float()
+        qi = torch.stack([q0, q1], dim=-1).reshape(h, w)
+        q = qi.float()
         depth_small = q * q * (1.0 / (256.0 * DEPTH_SCALE))
     color = _decode_color_small(packed, n_gray + n_d, gray8, stride, cm, h, w, hc, wc)
+    if return_codes:
+        return gray8, depth_small, color, (codes_g, qi)
     return gray8, depth_small, color
+
+
+def unpack_raw(packed: torch.Tensor, H: int, W: int, stride: int):
+    """Device inverse of compact_frame(fmt="raw"): (gray u8 (H, W), depth
+    int32 counts (H, W), color u8 (ceil(H/s), ceil(W/s), 3))."""
+    n_gray, n_depth = H * W, 2 * H * W
+    h, w = -(-H // stride), -(-W // stride)
+    gray8 = packed[:n_gray].reshape(H, W)
+    d8 = packed[n_gray : n_gray + n_depth].reshape(H * W, 2).to(torch.int32)
+    depth16 = (d8[:, 0] | (d8[:, 1] << 8)).reshape(H, W)
+    color = packed[n_gray + n_depth : n_gray + n_depth + h * w * 3].reshape(h, w, 3)
+    return gray8, depth16, color
+
+
+def intra_codes(packed: torch.Tensor, H: int, W: int, stride: int):
+    """The 6-bit luma codes (H, W) and 10-bit depth codes (h, w), int32, of
+    an I wire (6/10-bit yc12)."""
+    n_gray = (H * W // 4) * 3
+    h, w = H // stride, W // stride
+    return (_unpack6_codes(packed[:n_gray]).reshape(H, W),
+            _unpack10(packed[n_gray : n_gray + (h * w // 4) * 5]).reshape(h, w))
+
+
+def delta_codes(packed: torch.Tensor, H: int, W: int, stride: int, wire_prev):
+    """The codes of a delta (P) wire against the previous frame's
+    reconstructed codes wire_prev = (luma (H, W), depth (h, w)): luma
+    clamp(prev + r, 0, 63) from 4-bit residuals, depth clamp(prev + r, 0,
+    1023) from 5-bit ones; int32. The host encoder mirrors this integer
+    arithmetic exactly."""
+    h, w = H // stride, W // stride
+    prev_g, prev_d = wire_prev
+    n_l = H * W // 2
+    b = packed[:n_l].to(torch.int32)
+    r = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(H, W) - 8
+    qg = torch.clamp(prev_g.to(torch.int32) + r, 0, 63)
+    rd = unpack5_codes(packed[n_l : n_l + (h * w // 8) * 5]).reshape(h, w) - 16
+    return qg, torch.clamp(prev_d.to(torch.int32) + rd, 0, 1023)
+
+
+def _decode_codes(packed, chroma_off: int, qg, qd, H: int, W: int, stride: int):
+    """(gray u8, depth_small f32 metres, color u8) from 6/10-bit codes and
+    the chroma tail at chroma_off."""
+    h, w = H // stride, W // stride
+    cm = _chroma_mult(H, W, stride)
+    hc, wc = H // (cm * stride), W // (cm * stride)
+    gray8 = _gray6(qg)
+    return (gray8, _depth10_m(qd),
+            _decode_color_small(packed, chroma_off, gray8, stride, cm, h, w, hc, wc))
+
+
+def unpack_yc12_delta(packed: torch.Tensor, H: int, W: int, stride: int, wire_prev):
+    """Device decode of a delta (P) wire against wire_prev (delta_codes):
+    (gray u8, depth_small f32 meters, color u8, (luma codes u8, depth codes
+    int32))."""
+    qg, qd = delta_codes(packed, H, W, stride, wire_prev)
+    off = wire_delta_len(H, W, stride) - 2 * _chroma_plane(H, W, stride)
+    return (*_decode_codes(packed, off, qg, qd, H, W, stride), (qg.to(torch.uint8), qd))
 
 
 def finish_yc12(extractor, cam, stride: int, min_depth: float, max_depth: float,
@@ -231,11 +509,46 @@ def finish_yc12(extractor, cam, stride: int, min_depth: float, max_depth: float,
 
 
 def prepare_and_extract(extractor, cam, stride, min_depth, max_depth,
-                        use_feature_min_depth, packed, depth_bits, dct=None):
-    """Unpack one yc12/ydct buffer and extract: (Keypoints, depth_small,
-    color_small)."""
+                        use_feature_min_depth, packed, depth_bits, dct=None, gray_bits=8,
+                        fmt="yc12"):
+    """Unpack one yc12/ydct/raw buffer and extract: (Keypoints,
+    depth_small, color_small)."""
+    if fmt == "raw":
+        gray8, depth16, color_small = unpack_raw(packed, cam.height, cam.width, stride)
+        depth = depth16.float() * (1.0 / DEPTH_SCALE)
+        valid = (depth > min_depth) & (depth < max_depth)
+        depth = torch.where(valid, depth, 0.0)
+        gray = gray8.float() * (1.0 / 255.0)
+        kp = extractor(gray, feature_depth_map(depth, valid, use_feature_min_depth), cam)
+        return kp, depth[::stride, ::stride], color_small
     gray8, depth_m, color_small = unpack_yc12(packed, cam.height, cam.width, stride,
-                                              depth_bits, dct)
+                                              depth_bits, dct, gray_bits)
+    kp, depth_small = finish_yc12(extractor, cam, stride, min_depth, max_depth,
+                                  use_feature_min_depth, gray8, depth_m)
+    return kp, depth_small, color_small
+
+
+def prepare_and_extract_wire(extractor, cam, stride, min_depth, max_depth,
+                             use_feature_min_depth, packed, intra: torch.Tensor, wire):
+    """The delta wire's unpack and extract. packed: an I wire (6/10-bit
+    yc12) or a P wire padded to the I length; intra: () bool on the device,
+    True for an I wire; wire: the (luma u8 (H, W), depth int32 (h, w))
+    codes of the previous frame, overwritten in place with this frame's.
+    Both decodes run and the codes are selected by `intra`, so one captured
+    step serves I and P frames alike (the JAX package dispatches on the
+    buffer length, one compiled step each)."""
+    H, W = cam.height, cam.width
+    qg_i, qd_i = intra_codes(packed, H, W, stride)
+    qg_p, qd_p = delta_codes(packed, H, W, stride, wire)
+    qg = torch.where(intra, qg_i, qg_p)
+    qd = torch.where(intra, qd_i, qd_p)
+    n_c = 2 * _chroma_plane(H, W, stride)
+    off_i = wire_intra_len(H, W, stride) - n_c
+    off_p = wire_delta_len(H, W, stride) - n_c
+    chroma = torch.where(intra, packed[off_i : off_i + n_c], packed[off_p : off_p + n_c])
+    gray8, depth_m, color_small = _decode_codes(chroma, 0, qg, qd, H, W, stride)
+    wire[0].copy_(qg.to(torch.uint8))
+    wire[1].copy_(qd)
     kp, depth_small = finish_yc12(extractor, cam, stride, min_depth, max_depth,
                                   use_feature_min_depth, gray8, depth_m)
     return kp, depth_small, color_small

@@ -16,8 +16,11 @@ the device work is in ``graph/rescue.py``),
 ``clear_feature_information``, ``reset``, ``poses``, ``trajectory``,
 ``statistics``, ``extract``, ``add_node``, ``sanity_check``,
 ``memory_footprint``, ``save_state`` and ``load_state``; the host encode
-applies ``depth_scaling_factor`` (``maybe_scale_depth``). Host bookkeeping
-and the per-frame decisions live in ``graph/host_graph.py``.
+applies ``depth_scaling_factor`` (``maybe_scale_depth``); the wire
+fallbacks of ``__init__`` (ydct to yc12, yc12/ydct to raw, 5-bit to 6-bit
+luma, the delta wire off or implying 6/10 bits) and the delta wire's
+``_wire_encode``, host mirror and device state. Host bookkeeping and the
+per-frame decisions live in ``graph/host_graph.py``.
 
 A checkpoint (``save_state``) keeps the JAX package's ``__meta__`` keys; the
 port's arrays carry their field names (``store_uv``, ``graph_poses``, ...),
@@ -56,6 +59,11 @@ Two per-frame paths, chosen as in the JAX package:
   With ``use_icp``, a frame with visually failed candidates rescues them
   in one batched ICP call and pulls its result in one more copy.
 
+Under ``tpu_wire_delta`` the host encodes a frame when it is dispatched
+(``encode``, called once a frame in order): a P wire against the mirror of
+the device's codes while the chain is unbroken, else an I wire; frames
+off the fast path, a checkpoint load and the first frame break the chain.
+
 Configuration outside the port raises NotImplementedError.
 """
 from __future__ import annotations
@@ -85,7 +93,8 @@ from .device_step import StepGraph, StepSummary, commit_node, group_views, pack_
 from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_edges,
                          const_position_edge, decide_matches, inaffected_subgraph,
                          is_redundant)
-from .ingest import compact_frame, maybe_scale_depth, prepare_and_extract
+from .ingest import (compact_frame, delta_encode, host_unpack_codes, maybe_scale_depth,
+                     prepare_and_extract, wire_delta_len, wire_intra_len)
 from .node_store import NodeStore
 from .rescue import icp_rescue_body, retro_rescue
 
@@ -134,34 +143,58 @@ def descriptor_layout(extractor, p: ParameterServer):
     return extractor.desc_bits, DESC_DTYPES[p["tpu_descriptor_dtype"]]
 
 
-def check_slice(p: ParameterServer, cam: Intrinsics) -> None:
-    """Refuse configuration that selects a path this port does not have.
-    The ydct wire needs a frame divisible by 8: where the JAX package falls
-    back to yc12, the port refuses."""
-    s = p["cloud_creation_skip_step"]
-    fmt = p["tpu_ingest_format"]
+def check_slice(p: ParameterServer) -> None:
+    """Refuse configuration that selects a path this port does not have."""
     refused = {
-        "tpu_ingest_format": fmt not in ("yc12", "ydct") or (
-            fmt == "ydct" and (cam.height % 8 != 0 or cam.width % 8 != 0)),
-        "tpu_gray_bits": fmt == "yc12" and p["tpu_gray_bits"] != 8,
+        "tpu_ingest_format": p["tpu_ingest_format"] not in ("yc12", "ydct", "raw"),
+        "tpu_gray_bits": p["tpu_gray_bits"] not in (5, 6, 8),
         "tpu_depth_bits": p["tpu_depth_bits"] not in (10, 12),
         "tpu_frames_per_step": p["tpu_frames_per_step"] not in FRAMES_PER_STEP,
-        "tpu_wire_delta": p["tpu_wire_delta"],
-        "tpu_edge_info": p["tpu_edge_info"] != "scalar",
-        "tpu_emm_exact": p["tpu_emm_exact"],
+        "tpu_edge_info": p["tpu_edge_info"] not in ("scalar", "hessian"),
         "tpu_approx_select": p["tpu_approx_select"],
         "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] not in DESC_DTYPES,
         "tpu_mesh_devices": p["tpu_mesh_devices"] > 1,
         "global_loop_candidates": p["global_loop_candidates"] > 0,
-        "g2o_transformation_refinement": p["g2o_transformation_refinement"] > 0,
         "use_robot_odom": p["use_robot_odom"] or p["use_robot_odom_only"],
         "start_paused": p["start_paused"],
-        "cloud_creation_skip_step": cam.height % (2 * s) != 0 or cam.width % (2 * s) != 0,
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise NotImplementedError(
             "not in this port's slice: " + ", ".join(f"{k}={p[k]!r}" for k in bad))
+
+
+def wire_format(p: ParameterServer, cam: Intrinsics):
+    """(format, gray_bits, depth_bits, delta) of the ingest wire after the
+    JAX package's fallbacks (its GraphManager.__init__), each logged: ydct
+    needs a frame divisible by 8 (else yc12), yc12 and ydct one divisible by
+    2 x stride (else raw), 5-bit luma an area divisible by 8 (else 6); the
+    delta wire needs yc12 and aligned sizes (else off) and implies 6/10
+    bits, which are written back into the parameters."""
+    s = p["cloud_creation_skip_step"]
+    fmt, gray_bits, depth_bits = p["tpu_ingest_format"], p["tpu_gray_bits"], p["tpu_depth_bits"]
+    H, W = cam.height, cam.width
+    if fmt == "ydct" and (H % 8 or W % 8):
+        logger.warning("frame %dx%d not divisible by 8; ydct ingest falls back to yc12", W, H)
+        fmt = "yc12"
+    if fmt in ("yc12", "ydct") and (H % (2 * s) or W % (2 * s)):
+        logger.warning("frame %dx%d not divisible by 2*stride=%d; ingest falls back to raw",
+                       W, H, 2 * s)
+        fmt = "raw"
+    if gray_bits == 5 and (H * W) % 8:
+        logger.warning("frame area %% 8 != 0; tpu_gray_bits=5 falls back to 6")
+        gray_bits = 6
+    delta = bool(p["tpu_wire_delta"])
+    if delta and not (fmt == "yc12" and (H * W) % 2 == 0 and ((H // s) * (W // s)) % 8 == 0):
+        logger.warning("tpu_wire_delta needs the yc12 format and aligned frame sizes; disabled")
+        delta = False
+    if delta and (gray_bits, depth_bits) != (6, 10):
+        logger.warning("tpu_wire_delta implies gray_bits=6/depth_bits=10 (requested %d/%d): "
+                       "expect an L1-ATE cost vs the 8/12 defaults", gray_bits, depth_bits)
+        gray_bits, depth_bits = 6, 10
+        p.set("tpu_gray_bits", 6)
+        p.set("tpu_depth_bits", 10)
+    return fmt, gray_bits, depth_bits, delta
 
 
 def _inaffected_kernel(graph: GraphState, gi, ge, li, lj, nfix, nact, eact, free_mask,
@@ -184,7 +217,7 @@ class GraphManager:
                  device=None, extractor=None):
         self.params = params or default_params()
         p = self.params
-        check_slice(p, cam)
+        check_slice(p)
         self.device = backend.resolve_device(device)
         self.cam = cam
         self.n_cap = p["tpu_max_nodes"]
@@ -192,8 +225,7 @@ class GraphManager:
         self.k_cap = p["max_keypoints"]
         self.cand_batch = p["tpu_candidate_batch"]
         self.emm_stride = s = p["cloud_creation_skip_step"]
-        self.depth_bits = p["tpu_depth_bits"]
-        self.ingest_fmt = p["tpu_ingest_format"]
+        self.ingest_fmt, self.gray_bits, self.depth_bits, self.wire_delta = wire_format(p, cam)
         # the ydct luma's rate/quality point, carried to the encoder, the
         # decoder and the starvation alert (ValueError when unknown)
         self.dct = (dct_wire.spec(p["tpu_dct_quality"]) if self.ingest_fmt == "ydct"
@@ -250,7 +282,19 @@ class GraphManager:
         self.copy_waits = 0
         self.idle_waits = 0
         self._step_done = None  # event after the newest queued step (CUDA)
-        self.step_graph = (StepGraph(self.store, self.graph, self.generator)
+        # the delta wire: the host mirror of the device's codes, whether the
+        # device holds them (the chain is unbroken), and the device codes
+        # each step reads and overwrites
+        self._wire_qg: Optional[np.ndarray] = None
+        self._wire_qd: Optional[np.ndarray] = None
+        self._wire_synced = False
+        self.wire_state = None
+        if self.wire_delta:
+            self.wire_state = (
+                torch.zeros((cam.height, cam.width), dtype=torch.uint8, device=self.device),
+                torch.zeros((cam.height // s, cam.width // s), dtype=torch.int32,
+                            device=self.device))
+        self.step_graph = (StepGraph(self.store, self.graph, self.generator, self.wire_state)
                            if self.device.type == "cuda" else None)
 
     # ---- host state, read through the bookkeeping object ----------------
@@ -280,13 +324,16 @@ class GraphManager:
             max_mahal_sq=p["max_dist_for_inliers"] ** 2,
             min_inliers=p["min_matches"], emm_skip=p["emm_skip_step"],
             sigma_depth=p["sigma_depth"], sample_size=p["sample_candidates"],
-            refine_iterations=p["refine_iterations"])
+            refine_iterations=p["refine_iterations"],
+            projective_iterations=p["g2o_transformation_refinement"],
+            emm_exact=bool(p["tpu_emm_exact"]), edge_info_mode=p["tpu_edge_info"])
 
     def _step_cfg(self) -> dict:
         p = self.params
         return dict(
             extractor=self.extractor, cam=self.cam, cam_small=self.cam_small,
             stride=self.emm_stride, depth_bits=self.depth_bits, dct=self.dct,
+            gray_bits=self.gray_bits, fmt=self.ingest_fmt,
             min_depth=p["minimum_depth"], max_depth=p["maximum_depth"],
             **self._compare_kwargs(),
             observability_threshold=p["observability_threshold"],
@@ -311,13 +358,39 @@ class GraphManager:
         p = self.params
         return prepare_and_extract(
             self.extractor, self.cam, self.emm_stride, p["minimum_depth"],
-            p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits, self.dct)
+            p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits, self.dct,
+            self.gray_bits, self.ingest_fmt)
 
     def encode(self, rgb, depth) -> np.ndarray:
-        """The host wire of one frame (yc12 or ydct, as configured), its
-        depth scaled by depth_scaling_factor first."""
+        """The host wire of one frame (yc12, ydct or raw, as configured),
+        its depth scaled by depth_scaling_factor first. Under the delta wire
+        it is the wire of the next frame to be dispatched: call it once a
+        frame, in order, just before the frame's add_frame or
+        add_frame_group (the host mirror advances with each call)."""
         depth = maybe_scale_depth(depth, self.params["depth_scaling_factor"])
-        return compact_frame(rgb, depth, self.emm_stride, self.depth_bits, self.dct)
+        if self.wire_delta and self.n_nodes > 0 and self.mapping_enabled and fast_path(
+                self.params):
+            return self._wire_encode(rgb, depth)
+        return compact_frame(rgb, depth, self.emm_stride, self.depth_bits, self.dct,
+                             self.gray_bits, self.ingest_fmt)
+
+    def _wire_encode(self, rgb, depth) -> np.ndarray:
+        """The delta wire of a fast-path frame: a P wire against the mirror
+        while the device holds the mirrored codes and the clamp budget
+        holds, else an I wire, whose codes become the mirror."""
+        H, W, s = self.cam.height, self.cam.width, self.emm_stride
+        if self._wire_synced and self._wire_qg is not None:
+            out = delta_encode(rgb, depth, self._wire_qg, self._wire_qd, s,
+                               self.params["tpu_wire_delta_max_clamp"])
+            if out is not None:
+                packed, self._wire_qg, self._wire_qd = out
+                return packed
+        packed = compact_frame(rgb, depth, s, 10, None, 6)
+        self._wire_qg, self._wire_qd = host_unpack_codes(packed, H, W, s)
+        # the frame is dispatched on the fast path next, and the device
+        # rebuilds its codes from the I wire
+        self._wire_synced = True
+        return packed
 
     @torch.inference_mode()
     def extract(self, frame: Frame) -> Keypoints:
@@ -355,6 +428,7 @@ class GraphManager:
 
     def _add_first_frame(self, packed, timestamp, ground_truth_pose):
         """firstNode (graph_manager.cpp:360-402): fixed at GT or identity."""
+        self._wire_synced = False
         kp, depth_small, color_small = self._extract(packed)
         pose = (np.asarray(ground_truth_pose, np.float32) if ground_truth_pose is not None
                 else np.eye(4, dtype=np.float32))
@@ -376,13 +450,15 @@ class GraphManager:
         """Matching, RANSAC and EMM of the new frame against B stored nodes."""
         return compare_to_candidates(
             kp, depth_small, self.store, cand_idx, self.generator, self.cam_small,
-            cam_fx=self.cam.fx, cam_fy=self.cam.fy, **self._compare_kwargs())
+            cam_fx=self.cam.fx, cam_fy=self.cam.fy, cam_cx=self.cam.cx, cam_cy=self.cam.cy,
+            **self._compare_kwargs())
 
     def _add_frame_host(self, packed, timestamp: float, new_id: int) -> bool:
         """nodeComparisons + addNode (graph_manager.cpp:421-809): compare on
         the device, decide on the host. The frame waits for the card once:
         the comparison result and the keypoint count come back in one copy."""
         p = self.params
+        self._wire_synced = False  # frames off the fast path bypass the delta state
         B = self.cand_batch
         kp, depth_small, color_small = self._extract(packed)
         cand_ids = self.host.select_candidates(new_id, B)
@@ -569,17 +645,22 @@ class GraphManager:
             del h.timestamps[len(h.timestamps) - added:]
             h.n_nodes -= added
         e_starts = [h.reserve_edges(B) for _ in range(n)]
+        intra = None
+        if self.wire_delta:
+            compacts, intra = self._delta_wires(compacts)
         wires = np.stack(compacts)
         L = wires.shape[1]
         cuda = self.device.type == "cuda"
         host_flat = pack_group(wires, ids, [s[0] for s in slots], [s[1] for s in slots],
-                               [s[2] for s in slots], e_starts, pin=cuda)
+                               [s[2] for s in slots], e_starts, pin=cuda, intra=intra)
         if cuda and n > 1:
             sums = self.step_graph.run(host_flat, n, L, B, self._step_cfg())
         else:
             flat = host_flat.to(self.device, non_blocking=True)
             sums = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
-                              self.generator, **self._step_cfg())
+                              self.generator, self.wire_state, **self._step_cfg())
+        if self.wire_delta:
+            self._wire_synced = True
         self._step_calls += 1
         if cuda:
             self._step_done = torch.cuda.Event()
@@ -607,6 +688,24 @@ class GraphManager:
         if self.nodes_since_optimize >= p["optimizer_skip_step"]:
             self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
                           pcg_iters=24)
+
+    def _delta_wires(self, compacts):
+        """Delta-wire frames as the step takes them: every wire padded to
+        the I length, with its I flag. Where the newest is an I wire, the
+        host mirror is read back off it (as the device rebuilds its codes
+        from it), so that an I wire the caller encoded itself also
+        restarts the chain."""
+        H, W, s = self.cam.height, self.cam.width, self.emm_stride
+        L_i, L_p = wire_intra_len(H, W, s), wire_delta_len(H, W, s)
+        compacts = [np.asarray(c) for c in compacts]
+        for c in compacts:
+            if len(c) not in (L_i, L_p):
+                raise ValueError(f"a delta-wire frame is {L_i} (I) or {L_p} (P) bytes, "
+                                 f"not {len(c)}")
+        if len(compacts[-1]) == L_i:
+            self._wire_qg, self._wire_qd = host_unpack_codes(compacts[-1], H, W, s)
+        return ([np.pad(c, (0, L_i - len(c))) for c in compacts],
+                [len(c) == L_i for c in compacts])
 
     def _start_copy(self, summary: torch.Tensor):
         """Begin a device->host copy into pinned memory; (host, event), the
@@ -648,10 +747,15 @@ class GraphManager:
         contrast recovers), a recovery clears it; the average re-bases on an
         alert, so a long dark stretch alerts once. ydct reads the DC plane's
         bytes (block means), yc12 the luma bytes."""
-        if not isinstance(packed, np.ndarray):
-            return False
+        if self.wire_delta or not isinstance(packed, np.ndarray):
+            return False  # P wires carry residuals
         H, W = self.cam.height, self.cam.width
-        n = H * W if self.dct is None else dct_wire.dc_len(H, W, self.dct)
+        if self.dct is not None:
+            n = dct_wire.dc_len(H, W, self.dct)
+        elif self.ingest_fmt == "yc12" and self.gray_bits in (5, 6):
+            n = (H * W // 8) * 5 if self.gray_bits == 5 else (H * W // 4) * 3
+        else:  # raw and 8-bit yc12: plain luma bytes
+            n = H * W
         c = float(np.asarray(packed[:n:127], np.float32).std()) + 1e-3
         ema = self._contrast_ema
         if ema is None:
@@ -1092,6 +1196,9 @@ class GraphManager:
         self._nodes_opt_watermark = meta["nodes_opt_watermark"]
         self._kp_count0 = meta["kp_count0"]
         self._loc_poses_host = None
+        # a continued run starts at another frame than the saved wire codes'
+        # successor: the next fast-path frame ships an I wire
+        self._wire_synced = False
         run = meta.get("port")
         if run is None:
             return

@@ -2,14 +2,16 @@
 
 Port of the compact half of ``rgbdslam_v2_tpu/io/native_loader.py``
 (``_ensure_built`` restricted to the ``compact_*`` entries,
-``compact_yc12`` and ``compact_ydct``). The C source is the JAX package's,
+``compact_yc12`` with 8-, 6- and 5-bit luma, ``compact_ydct``, and
+``delta_encode_native`` as ``compact_delta``). The C source is the JAX package's,
 unedited, built alone (it needs no libpng) by ``backend``: ``g++ -O3
 -ffp-contract=off -shared -fPIC`` into the git-ignored ``_build/``, at first
 use. A failed build raises; only an input layout the C code refuses (float
 or odd-shaped RGB, a frame it cannot tile) returns None, and the caller then
 encodes with numpy.
 
-* yc12 bytes equal the numpy encoder's (``graph/ingest.compact_frame``).
+* yc12 and delta bytes equal the numpy encoder's
+  (``graph/ingest.compact_frame_numpy``, ``delta_encode_numpy``).
 * ydct is near-exact: the C DCT accumulates in double, so a code may
   differ by 1 from the numpy float32 GEMM encode, at ~2e-3 of positions on
   the bench frames (2.05e-3): mostly DC codes on an exact .5 tie, which
@@ -46,6 +48,8 @@ def library() -> ctypes.CDLL:
             lib.compact_yc12.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.compact_ydct.restype = i
             lib.compact_ydct.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp, vp, vp, i, vp]
+            lib.compact_delta.restype = i
+            lib.compact_delta.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
             _ready.add(id(lib))
     return lib
 
@@ -106,3 +110,29 @@ def compact_ydct(rgb, depth, stride: int, depth_bits: int, chroma_mult: int,
                          zigzag.ctypes.data_as(ctypes.c_void_p), spec.k_coded,
                          out.ctypes.data_as(ctypes.c_void_p))
     return out[:n] if n > 0 else None
+
+
+def compact_delta(rgb, depth, prev_qg: np.ndarray, prev_qd: np.ndarray, stride: int,
+                  max_clamp: float):
+    """The temporal-delta (P) wire against the state mirror (prev_qg (H, W)
+    u8, prev_qd (h, w) u16), which it advances IN PLACE: (packed, prev_qg,
+    prev_qd); "clamped" where more than max_clamp of the residuals clamp
+    (the mirror is then partly advanced: the caller ships an I wire and
+    rebuilds it); None where the C code refuses the layout."""
+    lib = library()
+    got = _inputs(rgb, depth)
+    if got is None or prev_qg.dtype != np.uint8 or prev_qd.dtype != np.uint16:
+        return None
+    if not (prev_qg.flags.c_contiguous and prev_qd.flags.c_contiguous):
+        return None
+    keep, ptrs, H, W = got
+    h, w = H // stride, W // stride
+    cm = 4 if (H % (4 * stride) == 0 and W % (4 * stride) == 0) else 2
+    cs = cm * stride
+    out = np.empty(H * W // 2 + (h * w // 8) * 5 + 2 * (H // cs) * (W // cs), np.uint8)
+    n = lib.compact_delta(*ptrs, prev_qg.ctypes.data_as(ctypes.c_void_p),
+                          prev_qd.ctypes.data_as(ctypes.c_void_p), H, W, int(stride), cm,
+                          int(max_clamp * (H * W + h * w)), out.ctypes.data_as(ctypes.c_void_p))
+    if n == -2:
+        return "clamped"
+    return (out[:n], prev_qg, prev_qd) if n > 0 else None

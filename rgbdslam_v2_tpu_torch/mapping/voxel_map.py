@@ -15,8 +15,8 @@ summed at the endpoints. The updates are ``index_add_`` of the in-bounds
 samples (atomic adds on the card). Every miss adds the same constant and
 every hit the same constant, colours and counts are integers below 2^24, so
 the order in which the adds land cannot change a sum, and a ray's length
-is summed in one fixed order on every device: the card's map equals the
-CPU's. The voxel of a sample is ``floor((p - origin) * (1/resolution))``
+is summed in one fixed order and rounded correctly on every device
+(``ray_length``): the card's map equals the CPU's. The voxel of a sample is ``floor((p - origin) * (1/resolution))``
 with the float32 reciprocal, as XLA compiles the JAX division by a constant.
 ``occupied_voxels`` and ``save`` run on the host in numpy, as in the JAX
 package, so the ``.ot`` bytes are the JAX writer's for the same state.
@@ -67,6 +67,21 @@ class VoxelMapConfig:
         return self.nx * self.ny * self.nz
 
 
+def ray_length(d: torch.Tensor) -> torch.Tensor:
+    """|d| of (N, 3) float32 vectors, the same bits on every device: the
+    squares summed in one fixed order, elementwise (a reduction kernel's
+    order differs between the card and the CPU), and the square root taken
+    in float64 and rounded to float32, which is the correctly rounded
+    float32 root. torch's float32 sqrt on the CPU is not: it differs from
+    the card's (and the float64 root's) in the last bit on some rays, and
+    a last-bit change of a ray's length moves samples across voxel faces.
+    XLA on the CPU contracts the sum to fma(z, z, fma(y, y, x * x)), so
+    the JAX package's lengths can differ from these in the last bit; the
+    tests find no voxel where that matters on their clouds."""
+    s = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    return torch.sqrt(s.double()).float()
+
+
 def _recip32(v: float) -> float:
     """1/v rounded to float32 (exact as a Python float)."""
     return float(np.float32(1.0) / np.float32(v))
@@ -115,14 +130,7 @@ class VoxelMap:
         valid = self._tensor(valid, torch.bool).reshape(-1)
         origin = self._tensor(sensor_origin, torch.float32).reshape(3)
         d = pts - origin
-        # the squares summed in one fixed order, elementwise: a reduction
-        # kernel's order differs between the card and the CPU, and a last-bit
-        # change of dist moves ray samples across voxel faces. (XLA on the
-        # CPU contracts the sum to fma(z, z, fma(y, y, x * x)), and its
-        # samples differ from a separate multiply and add in the last bit
-        # too, so a sample on a voxel face can land on the other side of it
-        # in the JAX package; the tests find no such voxel on their clouds.)
-        dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])
+        dist = ray_length(d)
         dirn = d / torch.clamp(dist, min=1e-6)[:, None]
 
         # misses: the fixed-step samples strictly before the endpoint

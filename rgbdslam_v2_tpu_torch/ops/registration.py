@@ -1,20 +1,23 @@
 """Pairwise 6-DoF registration: batched RANSAC with Mahalanobis inliers.
 
 Port of ``rgbdslam_v2_tpu/ops/registration.py`` (``_sym3_solve``,
-``mahalanobis_sq``, ``_gumbel_topk_sample``, ``ransac_register`` without the
-projective refinement branch), batched over a leading candidate dimension
-B where the JAX version is vmapped.
+``mahalanobis_sq``, ``_gumbel_topk_sample``, ``pose_information``,
+``ransac_register`` with its projective refinement), batched over a
+leading candidate dimension B where the JAX version is vmapped.
 
 Hypothesis sampling draws Gumbel noise from a ``torch.Generator``; it cannot
 reproduce ``jax.random``'s draws, so ``ransac_register`` takes an optional
 ``sample_idx`` that a parity test fills with the JAX indices.
 
 The refinement after the hypothesis sweep (masked Kabsch refits, each gated
-by the full-covariance Mahalanobis test, then the final score) is
+by the full-covariance Mahalanobis test; with ``projective_iterations > 0``
+the projective refinement of ``ops/projective.py`` on the re-gated inliers,
+kept where it loses no inlier; then the final score) is
 ``ransac_refine``: CPU tensors go to its plain version
 ``ransac_refine_plain``, CUDA tensors to the hand-written kernel
 ``ransac_refine_f32`` in ``csrc/kabsch.cu`` (one launch a call for every
-candidate and refit, no host sync). ``LAUNCHES`` counts its launches.
+candidate, refit and projective iteration, no host sync). ``LAUNCHES``
+counts its launches.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from .. import backend
 from ..core import se3
 from ..core.alignment import weighted_kabsch_plain, weighted_kabsch_quat
 from ..core.noise import point_covariance_diag
+from .projective import refine_projective, uvz_from_xyz
 
 LAUNCHES = 0  # ransac_refine kernel launches (incremented only where the kernel launches)
 REFINE_MAX_MATCHES = 16384  # csrc/kabsch.cu: 256 threads x 64 inlier bits a thread
@@ -39,6 +43,21 @@ class RegistrationResult(NamedTuple):
     n_inliers: torch.Tensor  # (B,) int32
     rmse: torch.Tensor  # (B,) float32
     success: torch.Tensor  # (B,) bool
+
+
+class Projective(NamedTuple):
+    """The projective stage of the refinement: its iterations (0: off), the
+    full-resolution intrinsics and the depth noise of its information."""
+
+    iterations: int = 0
+    fx: float = 525.0
+    fy: float = 525.0
+    cx: float = 319.5
+    cy: float = 239.5
+    sigma_depth: float = 0.01
+
+
+NO_PROJECTIVE = Projective()
 
 
 def _sym3_solve(S: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -69,6 +88,28 @@ def mahalanobis_sq(T, src, dst, src_cov, dst_cov) -> torch.Tensor:
     Sigma = (Rb * src_cov[..., None, :]) @ Rb.transpose(-1, -2) + torch.diag_embed(dst_cov)
     x = _sym3_solve(Sigma, diff)
     return (diff * x).sum(dim=-1)
+
+
+def pose_information(T, src_xyz, dst_xyz, src_cov, dst_cov, inliers) -> torch.Tensor:
+    """(B, 6, 6) Gauss-Newton information of the pose estimates: H = sum
+    over inliers of J^T Sigma^-1 J, J = [I | -[T s]_x] (left perturbation
+    (t, omega)), Sigma = D_dst + R D_src R^T; symmetrised. Un-normalised:
+    the step trace-matches it to the scalar information."""
+    R = T[:, :3, :3]
+    p = se3.apply(T, src_xyz)  # (B, M, 3)
+    Rb = R[:, None]
+    Sigma = (Rb * src_cov[..., None, :]) @ Rb.transpose(-1, -2) + torch.diag_embed(dst_cov)
+    eye = torch.eye(3, dtype=Sigma.dtype, device=Sigma.device)
+    Sinv = torch.stack([_sym3_solve(Sigma, e.expand_as(Sigma[..., 0])) for e in eye], dim=-1)
+    Sinv = Sinv * inliers.to(src_xyz.dtype)[..., None, None]
+    P = se3.hat(p)  # J = [I | -P]: tt = Sinv, tr = -Sinv P, rr = P^T Sinv P
+    SP = Sinv @ P
+    tt = Sinv.sum(dim=1)
+    tr = -SP.sum(dim=1)
+    rr = (P.transpose(-1, -2) @ SP).sum(dim=1)
+    H = torch.cat([torch.cat([tt, tr], dim=-1),
+                   torch.cat([tr.transpose(-1, -2), rr], dim=-1)], dim=-2)
+    return 0.5 * (H + H.transpose(-1, -2))
 
 
 def gumbel_topk_sample(generator: torch.Generator, logits: torch.Tensor,
@@ -106,9 +147,14 @@ def ransac_register(
     min_inliers: int = 12,
     sigma_depth: float = 0.01,
     sample_idx: Optional[torch.Tensor] = None,  # (B, n_hyp, k) injected draws
+    projective_iterations: int = 0,
+    cam_cx: float = 319.5,
+    cam_cy: float = 239.5,
 ) -> RegistrationResult:
     """Batched RANSAC over B candidates' matched point pairs; dst_T_src.
-    The identity is scored as one extra hypothesis."""
+    The identity is scored as one extra hypothesis. projective_iterations
+    > 0 runs the reference's g2o_transformation_refinement on the final
+    inlier set (ops/projective.py)."""
     B, M = match_valid.shape
     dev = src_xyz.device
     w_depth = torch.where(
@@ -150,28 +196,34 @@ def ransac_register(
     bsel = torch.arange(B, device=dev)
     T, inliers, n_inl, rmse = ransac_refine(
         src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T_h[bsel, best],
-        inl[bsel, best], refine_iterations, max_mahal_sq)
+        inl[bsel, best], refine_iterations, max_mahal_sq,
+        Projective(projective_iterations, cam_fx, cam_fy, cam_cx, cam_cy, sigma_depth))
     return RegistrationResult(transform=T, inliers=inliers, n_inliers=n_inl,
                               rmse=rmse, success=n_inl >= min_inliers)
 
 
 def ransac_refine(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
-                  refine_iterations: int, max_mahal_sq: float):
-    """The refits and final score of ransac_register: (T (B, 4, 4), inliers
-    (B, M) bool, n_inliers (B,) int32, rmse (B,)). CPU tensors -> the plain
-    version; CUDA -> the kernel."""
+                  refine_iterations: int, max_mahal_sq: float,
+                  projective: Projective = NO_PROJECTIVE):
+    """The refits, the projective stage and the final score of
+    ransac_register: (T (B, 4, 4), inliers (B, M) bool, n_inliers (B,)
+    int32, rmse (B,)). CPU tensors -> the plain version; CUDA -> the
+    kernel."""
     args = (src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
-            refine_iterations, max_mahal_sq)
+            refine_iterations, max_mahal_sq, projective)
     if src_xyz.is_cuda:
         return ransac_refine_cuda(*args)
     return ransac_refine_plain(*args)
 
 
 def ransac_refine_plain(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
-                        refine_iterations: int, max_mahal_sq: float):
+                        refine_iterations: int, max_mahal_sq: float,
+                        projective: Projective = NO_PROJECTIVE):
     """The plain version: masked refits with the exact SVD fit
     (torch.linalg.svd + det) and the full covariance model, each kept only
-    where it leaves at least 3 inliers, then the final gate."""
+    where it leaves at least 3 inliers; the projective stage where its
+    iterations are > 0 (JAX ops/registration.py:280-305); then the final
+    gate."""
     for _ in range(refine_iterations):
         w = torch.where(inliers, w_depth, 0.0)
         T2 = weighted_kabsch_plain(src_xyz, dst_xyz, w)
@@ -180,6 +232,20 @@ def ransac_refine_plain(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid
         better = inl2.sum(dim=-1) >= 3
         T = torch.where(better[:, None, None], T2, T)
         inliers = torch.where(better[:, None], inl2, inliers)
+
+    if projective.iterations > 0:
+        pj = projective
+        m2 = mahalanobis_sq(T, src_xyz, dst_xyz, src_cov, dst_cov)
+        inliers = match_valid & (m2 < max_mahal_sq)
+        T_p = refine_projective(
+            T, uvz_from_xyz(src_xyz, pj.fx, pj.fy, pj.cx, pj.cy),
+            uvz_from_xyz(dst_xyz, pj.fx, pj.fy, pj.cx, pj.cy), inliers.to(src_xyz.dtype),
+            pj.fx, pj.fy, pj.cx, pj.cy, iterations=pj.iterations, sigma_depth=pj.sigma_depth)
+        # kept only where it loses no inlier under the acceptance gate
+        m2_p = mahalanobis_sq(T_p, src_xyz, dst_xyz, src_cov, dst_cov)
+        inl_p = match_valid & (m2_p < max_mahal_sq)
+        better = inl_p.sum(dim=-1) >= inliers.sum(dim=-1)
+        T = torch.where(better[:, None, None], T_p, T)
 
     m2 = mahalanobis_sq(T, src_xyz, dst_xyz, src_cov, dst_cov)
     inliers = match_valid & (m2 < max_mahal_sq)
@@ -197,16 +263,19 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = backend.load_kernel_library("kabsch").ransac_refine_f32
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
-                       + [ctypes.c_double, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_double]
+                       + [ctypes.c_int] + [ctypes.c_double] * 5 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def ransac_refine_cuda(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid, T, inliers,
-                       refine_iterations: int, max_mahal_sq: float):
-    """The kernel: one launch for every candidate and refit."""
+                       refine_iterations: int, max_mahal_sq: float,
+                       projective: Projective = NO_PROJECTIVE):
+    """The kernel: one launch for every candidate, refit and projective
+    iteration. The projective stage keeps its landmarks in a float64
+    scratch tensor of (B, M, 3), allocated here only where it runs."""
     global LAUNCHES
     pts = (src_xyz, dst_xyz, src_cov, dst_cov)
     if not src_xyz.is_cuda or any(x.device != src_xyz.device for x in
@@ -221,9 +290,11 @@ def ransac_refine_cuda(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid,
             or inliers.shape != (B, M) or T.shape != (B, 4, 4)):
         raise ValueError(f"shapes: expected (B, M, 3) points and covariances, (B, M) weights "
                          f"and masks, (B, 4, 4) T for B={B}, M={M}")
-    if M > REFINE_MAX_MATCHES or refine_iterations < 0:
+    pj = projective
+    if M > REFINE_MAX_MATCHES or refine_iterations < 0 or pj.iterations < 0:
         raise ValueError(f"ransac_refine_cuda takes at most {REFINE_MAX_MATCHES} matches and "
-                         f"refine_iterations >= 0 (got {M}, {refine_iterations})")
+                         f"refine_iterations, projective iterations >= 0 (got {M}, "
+                         f"{refine_iterations}, {pj.iterations})")
     dev = src_xyz.device
     T_out = torch.empty((B, 4, 4), dtype=torch.float32, device=dev)
     inl_out = torch.empty((B, M), dtype=torch.bool, device=dev)
@@ -233,9 +304,14 @@ def ransac_refine_cuda(src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid,
         return T_out, inl_out, n_out, rmse
     ins = [x.contiguous() for x in (src_xyz, dst_xyz, w_depth, src_cov, dst_cov, match_valid,
                                     T, inliers)]
+    landmarks = (torch.empty((B, M, 3), dtype=torch.float64, device=dev)
+                 if pj.iterations > 0 else None)
     status = _kernel_fn()(*(x.data_ptr() for x in ins), T_out.data_ptr(), inl_out.data_ptr(),
                           n_out.data_ptr(), rmse.data_ptr(), B, M, int(refine_iterations),
-                          float(max_mahal_sq), torch.cuda.current_stream(dev).cuda_stream)
+                          float(max_mahal_sq), int(pj.iterations), float(pj.fx), float(pj.fy),
+                          float(pj.cx), float(pj.cy), float(pj.sigma_depth),
+                          None if landmarks is None else landmarks.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream)
     backend.check_launch(status, "ransac_refine_f32")
     LAUNCHES += 1
     return T_out, inl_out, n_out, rmse

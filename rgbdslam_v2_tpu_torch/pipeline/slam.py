@@ -156,13 +156,18 @@ class SlamPipeline:
         the first node. Where the manager can group them, frames go
         tpu_frames_per_step at a time through one step call. With
         tpu_encode_ahead one worker thread keeps the next two host encodes
-        in flight (the same wires, so the same result)."""
+        in flight (the same wires, so the same result). Under the delta
+        wire the encodes wait for their dispatch (the host mirror advances
+        with each) and groups hold at most 2 frames, as in the JAX
+        package."""
         p = self.params
         mgr = self.manager
         n = len(stamps)
         ngroup = int(p["tpu_frames_per_step"])
+        if mgr.wire_delta:
+            ngroup = min(ngroup, 2)
         ex = (ThreadPoolExecutor(1, thread_name_prefix="encode-ahead")
-              if p["tpu_encode_ahead"] and n > 1 else None)
+              if p["tpu_encode_ahead"] and not mgr.wire_delta and n > 1 else None)
         futs = {}
 
         def get_enc(pos):

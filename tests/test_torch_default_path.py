@@ -77,7 +77,7 @@ def test_default_path_matches_jax_pipeline(sequence, tmp_path):
 def test_default_params_build_on_the_cpu_when_asked():
     p = default_params()
     assert not p["keep_all_nodes"] and p["tpu_drain_pipelined"] and p["tpu_max_nodes"] == 4096
-    check_slice(p, TUM_DEFAULT)
+    check_slice(p)
     pipe = SlamPipeline(TUM_DEFAULT, p, device="cpu")
     mgr = pipe.manager
     assert mgr.device.type == "cpu" and mgr.graph.poses.shape == (4096, 4, 4)

@@ -10,7 +10,10 @@ the GICP rescue (use_icp) on a 640x480 dark stretch: the keep-all path
 waits for the card only at the blocking drains of its starved mode (never
 for a rescue in flight), replayed groups with rescues equal the same groups
 stepped eagerly, and the default path adds one wait on a frame that
-rescues and none otherwise. Imports no JAX, so it runs on the card:
+rescues and none otherwise. The device step's options (the projective
+refinement, Hessian edges, the exact EMM, the delta wire, the raw wire and
+5-bit luma): the default path still waits once a frame, and replayed groups
+equal eager steps. Imports no JAX, so it runs on the card:
 
     python -m pytest --noconftest tests/test_torch_manager.py -q
 """
@@ -385,3 +388,87 @@ def test_default_path_rescue_adds_one_pull():
             assert sites.count("graph/manager.py") == 1 + calls[-1], (i, sites, calls[-1])
     assert sum(calls) >= 1 and mgr.statistics()["icp_rescues"] >= 1
 
+
+
+@pytest.mark.cuda
+def test_default_path_with_the_options_reads_the_card_once_a_frame():
+    """default_params() with the projective refinement, Hessian edges and
+    the exact EMM: still ONE device->host copy a frame (the comparison,
+    the keypoint count and the (B, 6, 6) information packed together), and
+    one refine launch a frame after the first (the projective stage runs
+    inside it)."""
+    poses, rgbs, depths = _render(20)
+    pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(dict(
+        g2o_transformation_refinement=3, tpu_edge_info="hessian", tpu_emm_exact=True)))
+    mgr = pipe.manager
+    online = mgr.optimize
+
+    def unwatched_optimize(*args, **kw):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return online(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    mgr.optimize = unwatched_optimize
+    registration.reset_launches()
+    per_frame = [_sync_sites(lambda: pipe.process_frame(
+        rgbs[i], depths[i], i / 30.0, gt_pose=poses[0] if i == 0 else None))
+        for i in range(len(rgbs))]
+    for i, sites in enumerate(per_frame[1:], 1):
+        assert sites.count("graph/manager.py") == 1, (i, sites)
+        assert set(sites) <= {"graph/manager.py", "backend.py"}, (i, sites)
+    assert registration.LAUNCHES == len(rgbs) - 1
+    info = mgr.graph.edge_info[: mgr.n_edges].cpu().numpy()
+    assert np.isfinite(info).all() and np.abs(info[:, 0, 1]).max() > 0  # anisotropic
+
+
+OPTION_GROUPS = {
+    "wire_delta": (2, dict(tpu_ingest_format="yc12", tpu_wire_delta=True,
+                           tpu_wire_delta_max_clamp=0.3)),
+    "g2o_refinement": (4, dict(g2o_transformation_refinement=3)),
+    "hessian_emm_exact": (4, dict(tpu_edge_info="hessian", tpu_emm_exact=True)),
+    "raw": (4, dict(tpu_ingest_format="raw")),
+    "gray5": (4, dict(tpu_ingest_format="yc12", tpu_gray_bits=5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", sorted(OPTION_GROUPS))
+def test_option_grouped_replay_equals_eager_steps(option):
+    """test_grouped_replay_equals_eager_steps with each of the device
+    step's options: n frames a step replayed against 1 eager; poses within
+    1e-6, equal statistics, no synchronizing call in a replayed group, one
+    refine launch a frame after the first. Under the delta wire (a clamp
+    budget of 0.3 lets P wires through at 640x480) both runs ship the same
+    I and P wires."""
+    n, over = OPTION_GROUPS[option]
+    poses, rgbs, depths = _render(25)
+    stamps = np.arange(25) / 30.0
+    runs = {}
+    for k in (1, n):
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
+            {**BENCH, "tpu_candidate_batch": 4, "optimizer_skip_step": 100,
+             "tpu_frames_per_step": k, **over}))
+        group, mgr = pipe._process_group, pipe.manager
+        replay_sites, lengths, encode = [], [], mgr.encode
+
+        def watched(*a, _group=group, _mgr=mgr, **kw):
+            sg = _mgr.step_graph
+            before = (sg.captures, sg.eager_groups)
+            sites = _sync_sites(lambda: _group(*a, **kw))
+            if (sg.captures, sg.eager_groups) == before:
+                replay_sites.append(sites)
+
+        pipe._process_group = watched
+        mgr.encode = lambda *a, _enc=encode, _out=lengths: _out.append(len(w := _enc(*a))) or w
+        registration.reset_launches()
+        pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
+        runs[k] = (mgr.poses(), mgr.statistics(), registration.LAUNCHES, replay_sites, lengths)
+    (p1, s1, r1, _, l1), (pn, sn, rn, sites, ln) = runs[1], runs[n]
+    assert sites and all(not s for s in sites), sites
+    assert rn == r1 == 24
+    assert sn == s1 and ln == l1
+    np.testing.assert_allclose(pn, p1, rtol=0, atol=1e-6)
+    if option == "wire_delta":
+        assert len(set(l1)) == 2  # I and P wires both flowed

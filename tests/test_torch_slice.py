@@ -75,12 +75,8 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"use_robot_odom": True}, {"tpu_gray_bits": 6}, {"tpu_ingest_format": "raw"},
-    {"tpu_wire_delta": True, "tpu_frames_per_step": 2}, {"start_paused": True},
-    {"global_loop_candidates": 2}, {"tpu_wire_delta": True},
-    {"tpu_ingest_format": "raw", "tpu_frames_per_step": 2},
-    {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
-    {"g2o_transformation_refinement": 2}, {"tpu_frames_per_step": 3},
+    {"use_robot_odom": True}, {"start_paused": True}, {"global_loop_candidates": 2},
+    {"tpu_frames_per_step": 3},
 ])
 def test_config_outside_the_slice_raises(override):
     name = next(iter(override))
@@ -88,22 +84,64 @@ def test_config_outside_the_slice_raises(override):
         SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")
 
 
+def _limit(jax_l4):
+    """The ATE bound of an option against the JAX package on the same
+    frames (chip_smoke.py phase 14's rule): max(1.5 x, + 5 mm)."""
+    return max(1.5 * jax_l4, jax_l4 + 0.005)
+
+
 @pytest.mark.parametrize("override", [
-    {"tpu_dct_quality": "2.5"},
-    # a frame that is not a multiple of 8 cannot carry the ydct wire: the
-    # JAX package falls back to yc12, the port refuses
-    {"tpu_ingest_format": "ydct", "cam": (100.0, 100.0, 66.0, 50.0, 132, 100)},
+    {"tpu_gray_bits": 6}, {"tpu_ingest_format": "raw"},
+    {"tpu_ingest_format": "raw", "tpu_frames_per_step": 2},
+    {"tpu_wire_delta": True, "tpu_wire_delta_max_clamp": 0.6},
+    {"tpu_wire_delta": True, "tpu_frames_per_step": 2, "tpu_wire_delta_max_clamp": 0.6},
+    {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
+    {"g2o_transformation_refinement": 2},
 ])
+def test_config_runs_as_in_jax(sequence, tmp_path, override):
+    """Options the port once refused: the configuration runs through both
+    packages on the same frames; the port's accepted edges within 25% of
+    the JAX package's and its L4 within max(1.5 x, + 5 mm) of it. (A delta
+    clamp budget of 0.6 lets P wires through at this size.)"""
+    params = {**PARAMS, **override}
+    jpipe = JPipeline(JIntrinsics(*CAM), JParams(dict(params)))
+    jrep, j_acc = _run(jpipe, sequence, tmp_path / "jax")
+    tpipe = SlamPipeline(Intrinsics(*CAM), ParameterServer(dict(params)), device="cpu")
+    trep, t_acc = _run(tpipe, sequence, tmp_path / "torch")
+    assert tpipe.manager.n_nodes == jpipe.manager.n_nodes == N_FRAMES
+    assert abs(t_acc - j_acc) <= 0.25 * j_acc, (t_acc, j_acc)
+    assert trep.ate_rmse[4] <= _limit(jrep.ate_rmse[4]), (trep.ate_rmse, jrep.ate_rmse)
+    m, jm = tpipe.manager, jpipe.manager
+    assert (m.ingest_fmt, m.gray_bits, m.depth_bits, m.wire_delta) == (
+        jm.ingest_fmt, jm.gray_bits, jm.depth_bits, jm.wire_delta)
+
+
+@pytest.mark.parametrize("override", [{"tpu_dct_quality": "2.5"}])
 def test_ydct_outside_its_domain_raises(override):
-    over = dict(override)
-    cam = Intrinsics(*over.pop("cam", CAM))
-    if "tpu_dct_quality" in over:  # an unknown quality is a ValueError, as in JAX
-        with pytest.raises(ValueError, match="tpu_dct_quality"):
-            SlamPipeline(cam, ParameterServer({**PARAMS, "tpu_ingest_format": "ydct",
-                                               **over}), device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="tpu_ingest_format"):
-            SlamPipeline(cam, ParameterServer({**PARAMS, **over}), device="cpu")
+    # an unknown quality is a ValueError, as in JAX
+    with pytest.raises(ValueError, match="tpu_dct_quality"):
+        SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, "tpu_ingest_format": "ydct",
+                                                        **override}), device="cpu")
+
+
+def test_ydct_outside_its_domain_falls_back(tmp_path):
+    """A frame that is not a multiple of 8 cannot carry the ydct wire: both
+    packages fall back to yc12 and run; the first frame's keypoints are
+    equal, the accepted edges within 25% and L4 within the option bound."""
+    cam = (100.0, 100.0, 66.0, 50.0, 132, 100)
+    world = JWorld.create(seed=0, texture_size=256, cam=JIntrinsics(*cam))
+    poses, rgbs, depths = jrender(world, 16, seed=2)
+    seq = (np.asarray(poses), rgbs, depths, np.arange(16) / 30.0)
+    params = {**PARAMS, "tpu_ingest_format": "ydct"}
+    jpipe = JPipeline(JIntrinsics(*cam), JParams(dict(params)))
+    tpipe = SlamPipeline(Intrinsics(*cam), ParameterServer(dict(params)), device="cpu")
+    assert tpipe.manager.ingest_fmt == jpipe.manager.ingest_fmt == "yc12"
+    jrep, j_acc = _run(jpipe, seq, tmp_path / "jax")
+    trep, t_acc = _run(tpipe, seq, tmp_path / "torch")
+    np.testing.assert_array_equal(tpipe.manager.store.uv[0].numpy(),
+                                  np.asarray(jpipe.manager.store.uv[0]))
+    assert abs(t_acc - j_acc) <= 0.25 * j_acc, (t_acc, j_acc)
+    assert trep.ate_rmse[4] <= _limit(jrep.ate_rmse[4]), (trep.ate_rmse, jrep.ate_rmse)
 
 
 @pytest.mark.parametrize("override", [

@@ -10,7 +10,7 @@ with the C unfilter built there; the C unfilter against its numpy plain
 version on all five filter types at 2 and 3 bytes a pixel; the voxel map's
 ray-walk insert on the card against the CPU on rendered 640x480 node clouds
 (the states equal: every update adds one constant, or an integer below
-2^24); run_tum on the card against run_arrays on the decoded frames (poses equal,
+2^24) and its ray lengths on 2^20 random vectors (bitwise); run_tum on the card against run_arrays on the decoded frames (poses equal,
 with no online optimize: its atomic adds on the card let two runs differ in
 the last bits); and a checkpoint continued in a fresh pipeline with the
 online optimize on (poses within 1e-5 m).
@@ -95,6 +95,23 @@ def test_voxel_insert_on_the_card_equals_the_cpu(frames, tmp_path):
     a.save(tmp_path / "cuda.ot")
     b.save(tmp_path / "cpu.ot")
     assert (tmp_path / "cuda.ot").read_bytes() == (tmp_path / "cpu.ot").read_bytes()
+
+
+@pytest.mark.cuda
+def test_ray_lengths_on_the_card_equal_the_cpu():
+    """The voxel map's ray lengths, the same bits on the card and the CPU
+    and within the float32 sum's rounding of the exact length: a float32
+    sqrt differed between the two devices in the last bit on some rays,
+    and one voxel of chip_smoke.py phase 12's map with it."""
+    from rgbdslam_v2_tpu_torch.mapping.voxel_map import ray_length
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    d = torch.from_numpy(rng.normal(0.0, 2.0, (1 << 20, 3)).astype(np.float32))
+    got, want = ray_length(d.to(dev)).cpu(), ray_length(d)
+    assert torch.equal(got, want), int((got != want).sum())
+    exact = d.double().square().sum(-1).sqrt()  # within the float32 sum's rounding of it
+    assert float(((want.double() - exact).abs() / exact).max()) <= 3e-7
 
 
 @pytest.mark.cuda

@@ -34,15 +34,20 @@ make_pipe. --family takes a feature family's settings on top of the
 configuration (chip_smoke.FAMILY_PARAMS: SIFTGPU at the reference's
 published evaluation settings, BRISK, FREAK; ORB adds nothing), as
 chip_smoke.py phase 13 runs them; --packages runs one package only.
+--set name=value (repeatable; the value read as JSON where it parses,
+else as a string) sets one parameter in both packages on top of all that,
+as chip_smoke.py phase 14 sets its options; --size WxH renders the orbit at
+another frame size (fx = fy = 525, the principal point at the centre).
 
 Usage: JAX_PLATFORMS=cpu python3 tools/make_pipe_same_frames.py
            [--frames 200] [--seeds 0 1] [--threads 4] [--jax-drains-land-at-once]
            [--sequence orbit] [--icp] [--config make_pipe] [--family ORB]
-           [--packages jax torch]
+           [--packages jax torch] [--set name=value ...] [--size 640x480]
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import tempfile
 import time
@@ -82,7 +87,17 @@ def main() -> None:
     ap.add_argument("--config", default="make_pipe", choices=("make_pipe", "default"))
     ap.add_argument("--family", default="ORB", choices=("ORB", "SIFTGPU", "BRISK", "FREAK"))
     ap.add_argument("--packages", nargs="+", default=["jax", "torch"], choices=("jax", "torch"))
+    ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE")
+    ap.add_argument("--size", default="640x480")
     args = ap.parse_args()
+    overrides = {}
+    for item in args.set:
+        name, _, value = item.partition("=")
+        try:
+            overrides[name] = json.loads(value)
+        except ValueError:
+            overrides[name] = value
+    W, H = (int(v) for v in args.size.split("x"))
     sys.path.insert(0, str(ROOT))
     import jax
 
@@ -94,11 +109,14 @@ def main() -> None:
     torch.set_num_threads(args.threads)
     from chip_smoke import FAMILY_PARAMS, MAKE_PIPE, WORLD_SEED
     from rgbdslam_v2_tpu.config import ParameterServer as JParams
-    from rgbdslam_v2_tpu.core.camera import TUM_DEFAULT as J_TUM
+    from rgbdslam_v2_tpu.core.camera import Intrinsics as JIntrinsics
     from rgbdslam_v2_tpu.io import SyntheticWorld as JWorld, render_sequence
     from rgbdslam_v2_tpu.ops import dct_wire as jdw
     from rgbdslam_v2_tpu.pipeline import SlamPipeline as JPipeline
-    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.core.camera import Intrinsics
+
+    cam = (525.0, 525.0, (W - 1) / 2.0, (H - 1) / 2.0, W, H)
+    J_TUM = JIntrinsics(*cam)
     from rgbdslam_v2_tpu_torch.config import ParameterServer
     from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
@@ -126,7 +144,7 @@ def main() -> None:
     depths = np.clip(np.asarray(depths) * 5000.0 + 0.5, 0, 65535).astype(np.uint16)
     rgbs = np.asarray(rgbs)
     stamps = np.arange(args.frames) / 30.0
-    print(f"rendered {args.frames} frames 640x480 of {args.sequence} with the JAX package in "
+    print(f"rendered {args.frames} frames {W}x{H} of {args.sequence} with the JAX package in "
           f"{time.perf_counter() - t0:.1f} s (CPU)", flush=True)
 
     if args.jax_drains_land_at_once:
@@ -136,18 +154,19 @@ def main() -> None:
         for name in args.packages:
             params = dict(MAKE_PIPE if args.config == "make_pipe" else {}, tpu_seed=seed,
                           **({"use_icp": True} if args.icp else {}),
-                          **FAMILY_PARAMS.get(args.family, {}))
+                          **FAMILY_PARAMS.get(args.family, {}), **overrides)
             if name == "jax":  # defaults, then the configuration's values
                 quality = jdw.QUALITY
                 pipe = JPipeline(J_TUM, JParams(params))
             else:
-                pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(params), device="cpu")
+                pipe = SlamPipeline(Intrinsics(*cam), ParameterServer(params), device="cpu")
             with tempfile.TemporaryDirectory() as td:
                 res[name] = drive(pipe, poses, rgbs, depths, stamps, td)
             if name == "jax":
                 jdw.set_quality(quality)
             r = res[name]
-            print(f"seed {seed} {name:5s} {args.family}: ATE L0..L4 {' / '.join(f'{a:.4f}' for a in r['ate'])} "
+            ate = " / ".join(f"{a:.4f}" for a in r["ate"])
+            print(f"seed {seed} {name:5s} {args.family} {overrides or ''}: ATE L0..L4 {ate} "
                   f"m; accepted edges {r['seq']} sequential + {r['loop']} loop; nodes "
                   f"{r['nodes']}; run {r['run_s']:.0f} s (CPU)", flush=True)
             del pipe
