@@ -194,6 +194,29 @@ and prints no result:
      EQUAL_FRAMES frames (poses within 1e-6, equal statistics) with the
      delta wire (2 frames a step, P wires flowing) and with
      g2o_transformation_refinement=3 (4 frames a step).
+ 15. the bag and point-cloud inputs and batch evaluation, on the bench
+     frames, at make_pipe: BAG_FRAMES (120) frames written as a ROS bag by
+     the port's write_rgbd_bag (rgb8, u16 depth as 32FC1 meters, ground
+     truth on /tf as /kinect, uncompressed chunks; its MiB, the seconds to
+     pair it, the ms a frame to decode the arrays, which must equal the
+     written frames); `rgbdslam-torch run --bagfile --evaluate --save-bag -p
+     ground_truth_frame_name=/kinect` with make_pipe's -p pairs: finite
+     ATE, the report's L0..L4 within 1e-6 m of the ATE against the
+     rendered poses, detect launches = frames, refine = frames - 1, the
+     trajectory files within 1e-5 m of run_arrays' on the same frames,
+     result.bag read back (one tf a node, positions within 1e-6 m); run_bag
+     against run_arrays fps, alternating. PCD_FRAMES (60) frames as
+     organized binary PCDs (write_pcd, NaN rows for invalid depth): each
+     loads back through CloudDataset with its depth bitwise and its
+     colours equal (load ms a frame); `rgbdslam-torch run --pcd-dir
+     --evaluate` within 1e-5 m of run_arrays, launches as above.
+     evaluate_sequences on the card over phase 12's two TUM directories
+     (EVAL_FRAMES frames, make_pipe and its one-frame-a-step yc12 variant):
+     summary.csv with a header and 4 rows, every L4 finite. Then
+     tpu_frames_per_step=3 (F22) on EQUAL_FRAMES frames fed in chunks
+     (F22_CHUNKS) whose tails hold 2 frames: groups of 3 and of 2 each
+     replayed, poses within 1e-6 of 1 frame a step eager, equal
+     statistics, 0 syncs and 0 idle waits in replayed groups.
 Phase 2 also holds the refine kernel with its projective stage
 (projective_iterations PROJ_ITERATIONS) to its plain version in float64.
 
@@ -202,8 +225,8 @@ numbers (launches from phase 6's run, the bench configuration, and from
 each later phase's; the Kabsch kernel's are 0 there, its refits having
 moved into the refine kernel; the refine kernel with its projective stage
 has an entry of its own, launched on phase 14's refinement runs); the last
-line is {"ok": true, "device": {...}}. --frames N (at least 23) shortens
-phases 3-14 to N frames each.
+line is {"ok": true, "device": {...}}. --frames N (at least 23; phase 15's
+F22 check needs 60) shortens phases 3-15 to N frames each.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -1133,10 +1156,22 @@ def run_cli(argv) -> tuple:
     return code, buf.getvalue(), built[0] if built else None
 
 
-def tum_phase(poses, rgbs, depths, dev, n_default: int) -> dict:
+def against_arrays(res: Path, ref: Path) -> list:
+    """Max difference of the trajectory files in res from those in ref by
+    level (L0..L4, rows stamp + pose)."""
+    import numpy as np
+    from rgbdslam_v2_tpu_torch.io.tum import read_trajectory_file
+
+    return [float(np.abs(read_trajectory_file(res / f"estimate_iteration_{lvl}.txt")
+                         - read_trajectory_file(ref / f"estimate_iteration_{lvl}.txt")).max())
+            for lvl in range(5)]
+
+
+def tum_phase(poses, rgbs, depths, dev, n_default: int, root: Path) -> dict:
     """Phase 12: the frames as a TUM directory through the port's own PNG
-    codec, loader, run_tum and CLI (see the module docstring). Every check
-    that fails calls fail(); returns the numbers to print."""
+    codec, loader, run_tum and CLI (see the module docstring), in root, where
+    its two TUM directories stay for phase 15. Every check that fails calls
+    fail(); returns the numbers to print."""
     import numpy as np
     import torch
     from rgbdslam_v2_tpu_torch.core import alignment
@@ -1145,7 +1180,7 @@ def tum_phase(poses, rgbs, depths, dev, n_default: int) -> dict:
     from rgbdslam_v2_tpu_torch.io import TumDataset, TumLoader, save_as_tum_dataset
     from rgbdslam_v2_tpu_torch.io.png import FILTER_PAETH
     from rgbdslam_v2_tpu_torch.io.pointcloud import read_pcd
-    from rgbdslam_v2_tpu_torch.io.tum import LOADER_THREADS, read_trajectory_file
+    from rgbdslam_v2_tpu_torch.io.tum import LOADER_THREADS
     from rgbdslam_v2_tpu_torch.mapping import VoxelMap
     from rgbdslam_v2_tpu_torch.mapping.octree_io import read_color_octree
     from rgbdslam_v2_tpu_torch.ops import detect, registration
@@ -1155,216 +1190,211 @@ def tum_phase(poses, rgbs, depths, dev, n_default: int) -> dict:
     out = {}
     # what TumDataset.load gives for these frames: the u16 counts as meters
     meters = depths.astype(np.float32) / np.float32(5000.0)
-    with tempfile.TemporaryDirectory() as td:
-        root = Path(td)
-        # the port's writer (every row Up, deflate level 1), then the same
-        # frames as libpng writes them (adaptive filters, level 6)
-        tum, tum_a = root / "tum", root / "tum_adaptive"
-        t0 = time.perf_counter()
-        save_as_tum_dataset(tum, poses, rgbs, depths)
-        out["write_ms"] = 1e3 * (time.perf_counter() - t0) / n
-        shutil.copytree(tum, tum_a)
-        ds, ds_a = TumDataset.open(tum), TumDataset.open(tum_a)
+    # the port's writer (every row Up, deflate level 1), then the same
+    # frames as libpng writes them (adaptive filters, level 6)
+    tum, tum_a = root / "tum", root / "tum_adaptive"
+    t0 = time.perf_counter()
+    save_as_tum_dataset(tum, poses, rgbs, depths)
+    out["write_ms"] = 1e3 * (time.perf_counter() - t0) / n
+    shutil.copytree(tum, tum_a)
+    ds, ds_a = TumDataset.open(tum), TumDataset.open(tum_a)
 
-        def write_adaptive(i):
-            for k, img in ((1, rgbs[i]), (3, depths[i])):
-                (tum_a / ds_a.pairs[i][k]).write_bytes(adaptive_png(img))
+    def write_adaptive(i):
+        for k, img in ((1, rgbs[i]), (3, depths[i])):
+            (tum_a / ds_a.pairs[i][k]).write_bytes(adaptive_png(img))
 
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write_adaptive, range(n)))
+    out["write_adaptive_ms"] = 1e3 * (time.perf_counter() - t0) / n
+    stamps = ds.timestamps()
+    out["png_mb"], out["decode"], out["loader_fps"] = {}, {}, {}
+    for name, d in (("up", ds), ("adaptive", ds_a)):
+        out["png_mb"][name] = sum(f.stat().st_size for f in d.root.rglob("*.png")) / 2**20
+        # every frame decodes to its rendered bytes (C unfilter, one thread)
+        dec = out["decode"][name] = decode_split(d, n, rgbs, depths)
+        if dec["bad"] or len(d) != n:
+            fail(f"TUM round trip ({name} filters): {len(dec['bad'])} of {n} frames decode "
+                 f"unequal ({dec['bad'][:5]}), {len(d)} pairs")
+        dec["numpy_unfilter_ms"] = unfilter_check(
+            d, min(UNFILTER_FRAMES if name == "up" else UNFILTER_FRAMES_ADAPTIVE, n))
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(8) as ex:
-            list(ex.map(write_adaptive, range(n)))
-        out["write_adaptive_ms"] = 1e3 * (time.perf_counter() - t0) / n
-        stamps = ds.timestamps()
-        out["png_mb"], out["decode"], out["loader_fps"] = {}, {}, {}
-        for name, d in (("up", ds), ("adaptive", ds_a)):
-            out["png_mb"][name] = sum(f.stat().st_size for f in d.root.rglob("*.png")) / 2**20
-            # every frame decodes to its rendered bytes (C unfilter, one thread)
-            dec = out["decode"][name] = decode_split(d, n, rgbs, depths)
-            if dec["bad"] or len(d) != n:
-                fail(f"TUM round trip ({name} filters): {len(dec['bad'])} of {n} frames decode "
-                     f"unequal ({dec['bad'][:5]}), {len(d)} pairs")
-            dec["numpy_unfilter_ms"] = unfilter_check(
-                d, min(UNFILTER_FRAMES if name == "up" else UNFILTER_FRAMES_ADAPTIVE, n))
+        with TumLoader(d) as loader:
+            k = sum(1 for _ in loader)
+        out["loader_fps"][name] = k / (time.perf_counter() - t0)
+    if out["decode"]["adaptive"]["filters"][FILTER_PAETH] == 0:
+        fail(f"adaptive PNGs hold no Paeth rows: {out['decode']['adaptive']['filters']}")
+    out["loader_threads"] = LOADER_THREADS
+    ds, tum = ds_a, tum_a  # the CLI reads what libpng writes
+
+    # the CLI, in process: bench.py's make_pipe, the verify recipe's outputs
+    res = root / "out"
+    detect.reset_launches()
+    alignment.reset_launches()
+    registration.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    code, text, pipe = run_cli(["run", "--tum-dir", tum, "--out", res, "--evaluate",
+                                "--save-clouds", "--save-octomap", "--save-g2o",
+                                "--save-features", *make_pipe_flags()])
+    out["cli_s"] = time.perf_counter() - t0
+    out["launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if code != 0 or pipe is None:
+        fail(f"rgbdslam-torch run exited {code}: {text[-2000:]}")
+    mgr = pipe.manager
+    report = json.loads((res / "estimate_report.json").read_text())
+    out["ate"] = [report["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
+    out["stats"] = st = report["statistics"]
+    out["save_ms"] = pipe.save_ms
+    replay = pipe.group_syncs["replay"]
+    out["replay_groups"] = len(replay)
+    out["replay_syncs"] = sum(len(x) for x, *_ in replay)
+    out["replay_idle"] = sum(i for *_, (_, i) in replay)
+    out["replay_waits"] = sum(w for *_, (w, _) in replay)
+    if out["launches"][0] != n or out["launches"][1] != n - 1:
+        fail(f"TUM entry: detect launched {out['launches'][0]}, refine "
+             f"{out['launches'][1]} times for {n} frames")
+    if not all(np.isfinite(out["ate"])) or out["ate"][4] > ATE_L4_MAX:
+        fail(f"TUM entry ATE {out['ate']}: not finite or L4 above {ATE_L4_MAX} m")
+    # the same frames through run_arrays, the same configuration
+    ref = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+    ref.run_arrays(rgbs, meters, stamps)
+    ref.evaluation_protocol(root / "ref", gt_stamps=list(ds.groundtruth[:, 0]),
+                            gt_xyz=ds.groundtruth[:, 1:4])
+    # per level: the optimizer's float index_add_ are atomic adds on the
+    # card, so two runs of one optimize may differ in the last bits
+    out["traj_diff"] = against_arrays(res, root / "ref")
+    out["pose_diff"] = float(np.abs(mgr.poses() - ref.manager.poses()).max())
+    if max(out["traj_diff"]) > 1e-5 or out["pose_diff"] > 1e-5:
+        fail(f"TUM entry against run_arrays: trajectory files differ by "
+             f"{out['traj_diff']}, poses by {out['pose_diff']:.3e} (limit 1e-5)")
+    # every output parses with the port's readers
+    pts, cols = read_pcd(res / "cloud.pcd")
+    centers, _, _, _ = read_color_octree(res / "map.ot")
+    g_poses, g_fixed, g_edges = read_g2o(res / "graph.g2o")
+    with np.load(res / "features.npz") as f:
+        n_feat = int(f["positions"].shape[0])
+    n_valid = int(mgr.store.kp_valid[: mgr.n_nodes].sum())
+    out["outputs"] = dict(cloud_points=len(pts), occupied=len(centers),
+                          vertices=len(g_poses), g2o_edges=len(g_edges), features=n_feat,
+                          valid_keypoints=n_valid)
+    if (len(g_poses) != mgr.n_nodes or len(g_edges) != st["active_edges"]
+            or n_feat != n_valid or not len(centers) or not len(pts)
+            or not np.isfinite(pts).all()):
+        fail(f"TUM entry outputs: {out['outputs']}, nodes {mgr.n_nodes}, active edges "
+             f"{st['active_edges']}")
+    code, text, _ = run_cli(["ate", res / "estimate_iteration_4.txt", tum / "groundtruth.txt"])
+    out["ate_cli"] = json.loads(text)["rmse"] if code == 0 else float("nan")
+    # the file holds positions to 1e-7 m: a few 1e-8 m apart
+    if not abs(out["ate_cli"] - out["ate"][4]) <= 1e-6:
+        fail(f"ate subcommand {out['ate_cli']} against the report's L4 {out['ate'][4]}")
+
+    # the voxel map: node clouds on the card and on the CPU
+    maps = {"cuda": VoxelMap(pipe.map_config(), device=dev),
+            "cpu": VoxelMap(pipe.map_config(), device="cpu")}
+    ms = []
+    for nid in np.linspace(0, mgr.n_nodes - 1, VOXEL_NODES).astype(int):
+        cloud = [t.cpu() for t in pipe._node_world_cloud(int(nid))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps["cuda"].insert_cloud(*cloud)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        maps["cpu"].insert_cloud(*cloud)
+    out["voxel_insert_ms"] = statistics.median(ms)
+    out["voxel_differ"] = {
+        k: int((getattr(maps["cuda"], k).cpu() != getattr(maps["cpu"], k))
+               .reshape(-1, 3 if k == "rgb_sum" else 1).any(-1).sum())
+        for k in ("logodds", "rgb_sum", "hits")}
+    out["voxels_hit"] = int((maps["cpu"].hits > 0).sum())
+    if any(out["voxel_differ"].values()):
+        fail(f"voxel map: card and CPU differ in {out['voxel_differ']} voxels")
+    del maps, pipe, mgr, ref
+
+    # the default configuration through the CLI
+    detect.reset_launches()
+    registration.reset_launches()
+    alignment.reset_launches()
+    t0 = time.perf_counter()
+    code, text, dpipe = run_cli(["run", "--tum-dir", tum, "--out", root / "default",
+                                 "--evaluate", "--max-frames", n_default])
+    out["default_s"] = time.perf_counter() - t0
+    out["default_launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
+    if code != 0:
+        fail(f"rgbdslam-torch run (default configuration) exited {code}: {text[-2000:]}")
+    rep = json.loads((root / "default" / "estimate_report.json").read_text())
+    out["default_ate"] = [rep["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
+    out["default_stats"] = rep["statistics"]
+    out["default_fps"] = rep["fps"]
+    del dpipe
+    if not all(np.isfinite(out["default_ate"])) or out["default_ate"][4] > DEFAULT_ATE_L4_MAX:
+        fail(f"default configuration through the CLI: ATE {out['default_ate']} (L4 limit "
+             f"{DEFAULT_ATE_L4_MAX})")
+
+    # the checkpoint: save, load into a fresh pipeline, both go on.
+    # Without the online optimize the poses must be equal; with it (every
+    # optimizer_skip_step frames, the cadence restored from the file) its
+    # atomic adds on the card let the two differ in the last bits
+    out["checkpoint"] = {}
+    if n >= CHECKPOINT_AT + CHECKPOINT_MORE:
+        for name, limit, over in (
+                ("no_optimize", 0.0,
+                 dict(optimizer_skip_step=10 * (CHECKPOINT_AT + CHECKPOINT_MORE))),
+                ("optimize", 1e-5, {})):
+            a = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
+            sl = slice(0, CHECKPOINT_AT)
+            a.run_arrays(rgbs[sl], depths[sl], stamps[sl])
             t0 = time.perf_counter()
-            with TumLoader(d) as loader:
-                k = sum(1 for _ in loader)
-            out["loader_fps"][name] = k / (time.perf_counter() - t0)
-        if out["decode"]["adaptive"]["filters"][FILTER_PAETH] == 0:
-            fail(f"adaptive PNGs hold no Paeth rows: {out['decode']['adaptive']['filters']}")
-        out["loader_threads"] = LOADER_THREADS
-        ds, tum = ds_a, tum_a  # the CLI reads what libpng writes
-
-        # the CLI, in process: bench.py's make_pipe, the verify recipe's outputs
-        res = root / "out"
-        detect.reset_launches()
-        alignment.reset_launches()
-        registration.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        code, text, pipe = run_cli(["run", "--tum-dir", tum, "--out", res, "--evaluate",
-                                    "--save-clouds", "--save-octomap", "--save-g2o",
-                                    "--save-features", *make_pipe_flags()])
-        out["cli_s"] = time.perf_counter() - t0
-        out["launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        if code != 0 or pipe is None:
-            fail(f"rgbdslam-torch run exited {code}: {text[-2000:]}")
-        mgr = pipe.manager
-        report = json.loads((res / "estimate_report.json").read_text())
-        out["ate"] = [report["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
-        out["stats"] = st = report["statistics"]
-        out["save_ms"] = pipe.save_ms
-        replay = pipe.group_syncs["replay"]
-        out["replay_groups"] = len(replay)
-        out["replay_syncs"] = sum(len(x) for x, *_ in replay)
-        out["replay_idle"] = sum(i for *_, (_, i) in replay)
-        out["replay_waits"] = sum(w for *_, (w, _) in replay)
-        if out["launches"][0] != n or out["launches"][1] != n - 1:
-            fail(f"TUM entry: detect launched {out['launches'][0]}, refine "
-                 f"{out['launches'][1]} times for {n} frames")
-        if not all(np.isfinite(out["ate"])) or out["ate"][4] > ATE_L4_MAX:
-            fail(f"TUM entry ATE {out['ate']}: not finite or L4 above {ATE_L4_MAX} m")
-        # the same frames through run_arrays, the same configuration
-        ref = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
-        ref.run_arrays(rgbs, meters, stamps)
-        ref.evaluation_protocol(root / "ref", gt_stamps=list(ds.groundtruth[:, 0]),
-                                gt_xyz=ds.groundtruth[:, 1:4])
-        # per level: the optimizer's float index_add_ are atomic adds on the
-        # card, so two runs of one optimize may differ in the last bits
-        out["traj_diff"] = [
-            float(np.abs(read_trajectory_file(res / f"estimate_iteration_{lvl}.txt")
-                         - read_trajectory_file(root / "ref" / f"estimate_iteration_{lvl}.txt"))
-                  .max()) for lvl in range(5)]
-        out["pose_diff"] = float(np.abs(mgr.poses() - ref.manager.poses()).max())
-        if max(out["traj_diff"]) > 1e-5 or out["pose_diff"] > 1e-5:
-            fail(f"TUM entry against run_arrays: trajectory files differ by "
-                 f"{out['traj_diff']}, poses by {out['pose_diff']:.3e} (limit 1e-5)")
-        # every output parses with the port's readers
-        pts, cols = read_pcd(res / "cloud.pcd")
-        centers, _, _, _ = read_color_octree(res / "map.ot")
-        g_poses, g_fixed, g_edges = read_g2o(res / "graph.g2o")
-        with np.load(res / "features.npz") as f:
-            n_feat = int(f["positions"].shape[0])
-        n_valid = int(mgr.store.kp_valid[: mgr.n_nodes].sum())
-        out["outputs"] = dict(cloud_points=len(pts), occupied=len(centers),
-                              vertices=len(g_poses), g2o_edges=len(g_edges), features=n_feat,
-                              valid_keypoints=n_valid)
-        if (len(g_poses) != mgr.n_nodes or len(g_edges) != st["active_edges"]
-                or n_feat != n_valid or not len(centers) or not len(pts)
-                or not np.isfinite(pts).all()):
-            fail(f"TUM entry outputs: {out['outputs']}, nodes {mgr.n_nodes}, active edges "
-                 f"{st['active_edges']}")
-        code, text, _ = run_cli(["ate", res / "estimate_iteration_4.txt", tum / "groundtruth.txt"])
-        out["ate_cli"] = json.loads(text)["rmse"] if code == 0 else float("nan")
-        # the file holds positions to 1e-7 m: a few 1e-8 m apart
-        if not abs(out["ate_cli"] - out["ate"][4]) <= 1e-6:
-            fail(f"ate subcommand {out['ate_cli']} against the report's L4 {out['ate'][4]}")
-
-        # the voxel map: node clouds on the card and on the CPU
-        maps = {"cuda": VoxelMap(pipe.map_config(), device=dev),
-                "cpu": VoxelMap(pipe.map_config(), device="cpu")}
-        ms = []
-        for nid in np.linspace(0, mgr.n_nodes - 1, VOXEL_NODES).astype(int):
-            cloud = [t.cpu() for t in pipe._node_world_cloud(int(nid))]
-            torch.cuda.synchronize()
+            a.manager.save_state(root / "state.npz")
+            save_s = time.perf_counter() - t0
+            mb = (root / "state.npz").stat().st_size / 2**20
+            b = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
             t0 = time.perf_counter()
-            maps["cuda"].insert_cloud(*cloud)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
-            maps["cpu"].insert_cloud(*cloud)
-        out["voxel_insert_ms"] = statistics.median(ms)
-        out["voxel_differ"] = {
-            k: int((getattr(maps["cuda"], k).cpu() != getattr(maps["cpu"], k))
-                   .reshape(-1, 3 if k == "rgb_sum" else 1).any(-1).sum())
-            for k in ("logodds", "rgb_sum", "hits")}
-        out["voxels_hit"] = int((maps["cpu"].hits > 0).sum())
-        if any(out["voxel_differ"].values()):
-            fail(f"voxel map: card and CPU differ in {out['voxel_differ']} voxels")
-        del maps, pipe, mgr, ref
+            b.manager.load_state(root / "state.npz")
+            load_s = time.perf_counter() - t0
+            optimizes, optimize = [], b.manager.optimize
+            b.manager.optimize = lambda *x, **kw: optimizes.append(1) or optimize(*x, **kw)
+            sl = slice(CHECKPOINT_AT, CHECKPOINT_AT + CHECKPOINT_MORE)
+            for pipe in (a, b):
+                pipe.run_arrays(rgbs[sl], depths[sl], stamps[sl])
+            diff = float(np.abs(a.manager.poses() - b.manager.poses()).max())
+            same = a.manager.statistics() == b.manager.statistics()
+            ck = out["checkpoint"][name] = dict(
+                save_s=save_s, load_s=load_s, mb=mb, diff=diff, same_stats=same,
+                limit=limit, optimizes=len(optimizes),
+                nodes=(a.manager.n_nodes, b.manager.n_nodes))
+            del a, b
+            if (not diff <= limit or (limit == 0.0 and not same) or len(set(ck["nodes"])) != 1
+                    or (ck["optimizes"] > 0) != (name == "optimize")):
+                fail(f"checkpoint continuation ({name}): poses differ by {diff:.3e} "
+                     f"(limit {limit}), statistics equal {same}, nodes {ck['nodes']}, "
+                     f"online optimizes after the load {ck['optimizes']}")
 
-        # the default configuration through the CLI
-        detect.reset_launches()
-        registration.reset_launches()
-        alignment.reset_launches()
-        t0 = time.perf_counter()
-        code, text, dpipe = run_cli(["run", "--tum-dir", tum, "--out", root / "default",
-                                     "--evaluate", "--max-frames", n_default])
-        out["default_s"] = time.perf_counter() - t0
-        out["default_launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
-        if code != 0:
-            fail(f"rgbdslam-torch run (default configuration) exited {code}: {text[-2000:]}")
-        rep = json.loads((root / "default" / "estimate_report.json").read_text())
-        out["default_ate"] = [rep["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
-        out["default_stats"] = rep["statistics"]
-        out["default_fps"] = rep["fps"]
-        del dpipe
-        if not all(np.isfinite(out["default_ate"])) or out["default_ate"][4] > DEFAULT_ATE_L4_MAX:
-            fail(f"default configuration through the CLI: ATE {out['default_ate']} (L4 limit "
-                 f"{DEFAULT_ATE_L4_MAX})")
-
-        # the checkpoint: save, load into a fresh pipeline, both go on.
-        # Without the online optimize the poses must be equal; with it (every
-        # optimizer_skip_step frames, the cadence restored from the file) its
-        # atomic adds on the card let the two differ in the last bits
-        out["checkpoint"] = {}
-        if n >= CHECKPOINT_AT + CHECKPOINT_MORE:
-            for name, limit, over in (
-                    ("no_optimize", 0.0,
-                     dict(optimizer_skip_step=10 * (CHECKPOINT_AT + CHECKPOINT_MORE))),
-                    ("optimize", 1e-5, {})):
-                a = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
-                sl = slice(0, CHECKPOINT_AT)
-                a.run_arrays(rgbs[sl], depths[sl], stamps[sl])
-                t0 = time.perf_counter()
-                a.manager.save_state(root / "state.npz")
-                save_s = time.perf_counter() - t0
-                mb = (root / "state.npz").stat().st_size / 2**20
-                b = SlamPipeline(TUM_DEFAULT, make_pipe_params(**over), device=dev)
-                t0 = time.perf_counter()
-                b.manager.load_state(root / "state.npz")
-                load_s = time.perf_counter() - t0
-                optimizes, optimize = [], b.manager.optimize
-                b.manager.optimize = lambda *x, **kw: optimizes.append(1) or optimize(*x, **kw)
-                sl = slice(CHECKPOINT_AT, CHECKPOINT_AT + CHECKPOINT_MORE)
-                for pipe in (a, b):
-                    pipe.run_arrays(rgbs[sl], depths[sl], stamps[sl])
-                diff = float(np.abs(a.manager.poses() - b.manager.poses()).max())
-                same = a.manager.statistics() == b.manager.statistics()
-                ck = out["checkpoint"][name] = dict(
-                    save_s=save_s, load_s=load_s, mb=mb, diff=diff, same_stats=same,
-                    limit=limit, optimizes=len(optimizes),
-                    nodes=(a.manager.n_nodes, b.manager.n_nodes))
-                del a, b
-                if (not diff <= limit or (limit == 0.0 and not same) or len(set(ck["nodes"])) != 1
-                        or (ck["optimizes"] > 0) != (name == "optimize")):
-                    fail(f"checkpoint continuation ({name}): poses differ by {diff:.3e} "
-                         f"(limit {limit}), statistics equal {same}, nodes {ck['nodes']}, "
-                         f"online optimizes after the load {ck['optimizes']}")
-
-        # fps: the TUM entry (both directories) against run_arrays on the
-        # same frames, alternating; per run the wall, the main thread's CPU
-        # and the whole process's CPU ms a frame (every thread: loader,
-        # encode-ahead, torch's)
-        fps = {"tum_up": [], "tum_adaptive": [], "arrays": []}
-        out["host"] = {k: [] for k in fps}
-        out["loader_waits"] = {"tum_up": [], "tum_adaptive": []}
-        n_fps = out["fps_frames"] = min(n, TUM_FPS_FRAMES)
-        for kind in ("tum_up", "tum_adaptive", "arrays") * 2:
-            pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
-            torch.cuda.synchronize()
-            t0, c0, p0 = time.perf_counter(), time.thread_time(), time.process_time()
-            if kind == "arrays":
-                pipe.run_arrays(rgbs[:n_fps], meters[:n_fps], stamps[:n_fps])
-            else:
-                out["loader_waits"][kind].append(pipe.run_tum(
-                    ds if kind == "tum_adaptive" else TumDataset.open(root / "tum"), n_fps))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            fps[kind].append(n_fps / wall)
-            out["host"][kind].append(tuple(1e3 * x / n_fps for x in (
-                wall, time.thread_time() - c0, time.process_time() - p0)))
-            del pipe
-        out["fps"] = fps
+    # fps: the TUM entry (both directories) against run_arrays on the
+    # same frames, alternating; per run the wall, the main thread's CPU
+    # and the whole process's CPU ms a frame (every thread: loader,
+    # encode-ahead, torch's)
+    fps = {"tum_up": [], "tum_adaptive": [], "arrays": []}
+    out["host"] = {k: [] for k in fps}
+    out["loader_waits"] = {"tum_up": [], "tum_adaptive": []}
+    n_fps = out["fps_frames"] = min(n, TUM_FPS_FRAMES)
+    for kind in ("tum_up", "tum_adaptive", "arrays") * 2:
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+        torch.cuda.synchronize()
+        t0, c0, p0 = time.perf_counter(), time.thread_time(), time.process_time()
+        if kind == "arrays":
+            pipe.run_arrays(rgbs[:n_fps], meters[:n_fps], stamps[:n_fps])
+        else:
+            out["loader_waits"][kind].append(pipe.run_tum(
+                ds if kind == "tum_adaptive" else TumDataset.open(root / "tum"), n_fps))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fps[kind].append(n_fps / wall)
+        out["host"][kind].append(tuple(1e3 * x / n_fps for x in (
+            wall, time.thread_time() - c0, time.process_time() - p0)))
+        del pipe
+    out["fps"] = fps
     return out
 
 
@@ -1644,6 +1674,257 @@ def report_options(op: dict, frames: int) -> None:
             problems.append(f"{name}: the replayed groups differ from the eager steps")
     if problems:
         fail("; ".join(problems))
+
+
+# phase 15: the bag and cloud inputs, batch evaluation and F22's group length
+BAG_FRAMES = 120  # frames written as a bag (~2.15 MB a frame: rgb8 + 32FC1)
+PCD_FRAMES = 60  # frames written as organized binary PCDs (~4.9 MB a frame)
+EVAL_FRAMES = 60  # frames of each batch-evaluation run
+BAG_DECODE_FRAMES = 20  # frames whose arrays are decoded from the bag alone, timed
+# F22: tpu_frames_per_step=3 on EQUAL_FRAMES frames fed in chunks whose
+# tails hold 2 frames, so that both group lengths are captured and replayed
+F22_CHUNKS = (12, 11, 11, 11, 11, 4)
+
+
+def f22_run(poses, rgbs, depths, stamps, dev) -> dict:
+    """Phase 15's F22 check: make_pipe_params(tpu_candidate_batch=4,
+    optimizer_skip_step=100) at 3 frames a step replayed against 1 frame a
+    step eager (phase 7's check), both fed F22_CHUNKS frames a run_arrays
+    call; the 3-a-step run's group lengths, whether each group only
+    replayed, and the synchronizing calls in replayed groups."""
+    import numpy as np
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    runs, groups = {}, []
+    for k in (1, 3):
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(
+            tpu_candidate_batch=4, optimizer_skip_step=100, tpu_frames_per_step=k), device=dev)
+        if k == 3:
+            syncs = watch_groups(pipe)
+            watched = pipe._process_group
+
+            def sized(compacts, tss, watched=watched, syncs=syncs):
+                before = len(syncs["replay"])
+                watched(compacts, tss)
+                groups.append((len(compacts), len(syncs["replay"]) > before))
+
+            pipe._process_group = sized
+        start = 0
+        for m in F22_CHUNKS:
+            sl = slice(start, start + m)
+            pipe.run_arrays(rgbs[sl], depths[sl], stamps[sl], gt_poses=poses[sl])
+            start += m
+        runs[k] = (pipe.manager.poses(), pipe.manager.statistics(), pipe.manager.step_graph)
+        del pipe
+    replayed = {n: sum(1 for g, r in groups if g == n and r) for n in (2, 3)}
+    return dict(diff=float(np.abs(runs[3][0] - runs[1][0]).max()),
+                stats_equal=runs[3][1] == runs[1][1], frames=sum(F22_CHUNKS),
+                lengths=sorted({g for g, _ in groups}), replayed=replayed,
+                groups=len(groups), captures=runs[3][2].captures, replays=runs[3][2].replays,
+                replay_syncs=sum(len(x) for x, *_ in syncs["replay"]),
+                replay_idle=sum(i for *_, (_, i) in syncs["replay"]))
+
+
+def bag_phase(poses, rgbs, depths, stamps, dev, root: Path) -> dict:
+    """Phase 15: the bench frames through the port's bag and point-cloud
+    inputs and batch evaluation (see the module docstring), in root, where
+    phase 12 left its two TUM directories. Every check that fails calls
+    fail(); returns the numbers to print."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT, backproject_grid
+    from rgbdslam_v2_tpu_torch.eval.ate import evaluate_ate
+    from rgbdslam_v2_tpu_torch.io.cloud_input import CloudDataset
+    from rgbdslam_v2_tpu_torch.io.pointcloud import write_pcd
+    from rgbdslam_v2_tpu_torch.io.rosbag import (pair_rgbd_messages, read_tf_trajectory,
+                                                 write_rgbd_bag)
+    from rgbdslam_v2_tpu_torch.io.tum import read_trajectory_file
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+    from rgbdslam_v2_tpu_torch.pipeline.batch_eval import evaluate_sequences
+
+    def reset():
+        detect.reset_launches()
+        registration.reset_launches()
+        alignment.reset_launches()
+
+    def launches():
+        return detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES
+
+    out = {}
+    # the u16 counts as the bag carries them: 32FC1 meters, counts / 5000
+    meters = depths.astype(np.float32) / np.float32(5000.0)
+
+    # ---- the bag: written, paired, decoded, through the CLI --------------
+    n = out["bag_frames"] = min(BAG_FRAMES, len(rgbs))
+    bag = root / "bench.bag"
+    t0 = time.perf_counter()
+    write_rgbd_bag(bag, stamps[:n], rgbs[:n], depths[:n], gt_poses=poses[:n],
+                   gt_child_frame="/kinect")
+    out["bag_write_s"] = time.perf_counter() - t0
+    out["bag_mib"] = bag.stat().st_size / 2**20
+    t0 = time.perf_counter()
+    pairs = pair_rgbd_messages(bag)
+    out["pair_s"] = time.perf_counter() - t0
+    if len(pairs) != n:
+        fail(f"bag: {len(pairs)} RGB-D pairs for {n} frames")
+    bag_stamps = [r.stamp for r, _ in pairs]
+    m = min(BAG_DECODE_FRAMES, n)
+    t0 = time.perf_counter()
+    decoded = [(r.as_array(), d.as_array()) for r, d in pairs[:m]]
+    out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / m
+    bad = [i for i, (rgb, d) in enumerate(decoded)
+           if not (np.array_equal(rgb, rgbs[i]) and np.array_equal(d, meters[i]))]
+    del pairs, decoded
+    if bad:
+        fail(f"bag: frames {bad} decode unequal to the written RGB and meters")
+
+    res, ref_dir = root / "bag_out", root / "bag_ref"
+    reset()
+    t0 = time.perf_counter()
+    code, text, pipe = run_cli(["run", "--bagfile", bag, "--out", res, "--evaluate",
+                                "--save-bag", "-p", "ground_truth_frame_name=/kinect",
+                                *make_pipe_flags()])
+    out["cli_s"] = time.perf_counter() - t0
+    out["launches"] = launches()
+    if code != 0 or pipe is None:
+        fail(f"rgbdslam-torch run --bagfile exited {code}: {text[-2000:]}")
+    report = json.loads((res / "estimate_report.json").read_text())
+    out["ate"] = [report["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
+    out["stats"] = report["statistics"]
+    replay = pipe.group_syncs["replay"]
+    out["replay_groups"], out["replay_syncs"] = len(replay), sum(len(x) for x, *_ in replay)
+    if out["launches"][0] != n or out["launches"][1] != n - 1:
+        fail(f"bag entry: detect launched {out['launches'][0]}, refine "
+             f"{out['launches'][1]} times for {n} frames")
+    # the report's ATE (ground truth from /tf) against the rendered poses
+    out["ate_rendered"] = []
+    for lvl in range(5):
+        rows = read_trajectory_file(res / f"estimate_iteration_{lvl}.txt")
+        out["ate_rendered"].append(
+            evaluate_ate(rows[:, 0], rows[:, 1:4], bag_stamps, poses[:n, :3, 3]).rmse)
+    out["ate_diff"] = max(abs(a - b) for a, b in zip(out["ate"], out["ate_rendered"]))
+    # ATE_L4_MAX holds the whole 520-frame orbit, whose loops close; on
+    # these 120 frames the bag run is held to run_arrays (below) instead
+    if not all(np.isfinite(out["ate"])):
+        fail(f"bag entry ATE {out['ate']}: not finite")
+    if not out["ate_diff"] <= 1e-6:
+        fail(f"bag entry: the report's ATE {out['ate']} against the rendered poses' "
+             f"{out['ate_rendered']}")
+    # result.bag: one tf a node at its pose
+    tf_stamps, tf_rows = read_tf_trajectory(res / "result.bag", child_frame="/camera")
+    est = pipe.manager.poses()
+    out["result_bag_diff"] = (float(np.abs(tf_rows[:, :3] - est[:, :3, 3]).max())
+                              if len(tf_rows) == len(est) else float("inf"))
+    if len(tf_stamps) != pipe.manager.n_nodes or not out["result_bag_diff"] <= 1e-6:
+        fail(f"result.bag: {len(tf_stamps)} tf for {pipe.manager.n_nodes} nodes, positions "
+             f"{out['result_bag_diff']:.3e} m from the trajectory")
+    del pipe
+    ref = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+    ref.run_arrays(rgbs[:n], meters[:n], bag_stamps)
+    out["ref_l4"] = ref.evaluation_protocol(ref_dir, gt_stamps=bag_stamps,
+                                            gt_xyz=poses[:n, :3, 3]).ate_rmse[4]
+    del ref
+    out["traj_diff"] = against_arrays(res, ref_dir)
+    if max(out["traj_diff"]) > 1e-5:
+        fail(f"bag entry against run_arrays: trajectory files differ by {out['traj_diff']} "
+             f"(limit 1e-5)")
+    # fps: run_bag against run_arrays on the same frames, alternating
+    fps = out["fps"] = {"bag": [], "arrays": []}
+    for kind in ("bag", "arrays") * 2:
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "bag":
+            pipe.run_bag(bag)
+        else:
+            pipe.run_arrays(rgbs[:n], meters[:n], bag_stamps)
+        torch.cuda.synchronize()
+        fps[kind].append(n / (time.perf_counter() - t0))
+        del pipe
+    bag.unlink()
+
+    # ---- organized PCDs: written, loaded, through the CLI ----------------
+    k = out["pcd_frames"] = min(PCD_FRAMES, len(rgbs))
+    pcd = root / "pcd"
+    pcd.mkdir()
+    t0 = time.perf_counter()
+    for i in range(k):
+        pts = backproject_grid(torch.from_numpy(meters[i]).to(dev), TUM_DEFAULT).cpu().numpy()
+        pts[meters[i] <= 0] = np.nan  # invalid depth as NaN rows, as PCL writes them
+        write_pcd(pcd / f"{stamps[i]:.6f}.pcd", pts.reshape(-1, 3), rgbs[i].reshape(-1, 3),
+                  organized_hw=meters.shape[1:3])
+    out["pcd_write_ms"] = 1e3 * (time.perf_counter() - t0) / k
+    out["pcd_mib"] = sum(f.stat().st_size for f in pcd.iterdir()) / 2**20
+    ds = CloudDataset.open(pcd, TUM_DEFAULT)
+    t0 = time.perf_counter()
+    bad = []
+    for i in range(k):
+        _ts, rgb, depth = ds.load(i)
+        if not (np.array_equal(rgb, rgbs[i]) and np.array_equal(depth, meters[i])):
+            bad.append(i)
+    out["pcd_load_ms"] = 1e3 * (time.perf_counter() - t0) / k
+    if bad or len(ds) != k:
+        fail(f"PCD input: {len(ds)} files; frames {bad[:5]} load unequal to the rendered "
+             f"RGB and depth")
+    res, ref_dir = root / "pcd_out", root / "pcd_ref"
+    reset()
+    t0 = time.perf_counter()
+    code, text, pipe = run_cli(["run", "--pcd-dir", pcd, "--out", res, "--evaluate",
+                                *make_pipe_flags()])
+    out["pcd_cli_s"] = time.perf_counter() - t0
+    out["pcd_launches"] = launches()
+    if code != 0 or pipe is None:
+        fail(f"rgbdslam-torch run --pcd-dir exited {code}: {text[-2000:]}")
+    del pipe
+    if out["pcd_launches"][0] != k or out["pcd_launches"][1] != k - 1:
+        fail(f"PCD entry: detect launched {out['pcd_launches'][0]}, refine "
+             f"{out['pcd_launches'][1]} times for {k} frames")
+    ref = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+    ref.run_arrays(rgbs[:k], meters[:k], ds.stamps)
+    ref.evaluation_protocol(ref_dir)
+    del ref
+    out["pcd_traj_diff"] = against_arrays(res, ref_dir)
+    if max(out["pcd_traj_diff"]) > 1e-5:
+        fail(f"PCD entry against run_arrays: trajectory files differ by "
+             f"{out['pcd_traj_diff']} (limit 1e-5)")
+    shutil.rmtree(pcd)
+
+    # ---- batch evaluation over phase 12's TUM directories ----------------
+    configs = {"make_pipe": dict(MAKE_PIPE),
+               "one_a_step": dict(MAKE_PIPE, tpu_ingest_format="yc12", tpu_gray_bits=8,
+                                  tpu_frames_per_step=1, tpu_encode_ahead=False,
+                                  tpu_drain_pipelined=False)}
+    reset()
+    t0 = time.perf_counter()
+    results = evaluate_sequences([("up", root / "tum"), ("adaptive", root / "tum_adaptive")],
+                                 TUM_DEFAULT, configs=configs, out_dir=root / "batch",
+                                 max_frames=EVAL_FRAMES, device=dev)
+    out["batch_s"] = time.perf_counter() - t0
+    out["batch_launches"] = launches()
+    rows = (root / "batch" / "summary.csv").read_text().splitlines()
+    out["batch"] = [(r.name, r.config, r.ate_by_level.get(4, float("nan")), r.fps, r.nodes)
+                    for r in results]
+    n_eval = min(EVAL_FRAMES, len(rgbs))
+    if (len(rows) != 5 or not rows[0].startswith("sequence,config,ate_L0")
+            or not all(np.isfinite(r[2]) for r in out["batch"])
+            or any(r[4] != n_eval for r in out["batch"])):
+        fail(f"batch evaluation: summary.csv {rows}, results {out['batch']}")
+    if out["batch_launches"][0] != 4 * n_eval or out["batch_launches"][1] != 4 * (n_eval - 1):
+        fail(f"batch evaluation: launches {out['batch_launches']} for 4 runs of {n_eval}")
+
+    # ---- F22: three frames a step ----------------------------------------
+    f = min(EQUAL_FRAMES, len(rgbs))
+    reset()
+    out["f22"] = f22 = f22_run(poses[:f], rgbs[:f], depths[:f], stamps[:f], dev)
+    out["f22_launches"] = launches()
+    if (f22["diff"] > 1e-6 or not f22["stats_equal"] or f22["lengths"] != [2, 3]
+            or not all(f22["replayed"].values()) or f22["replay_syncs"]
+            or f22["replay_idle"]):
+        fail(f"tpu_frames_per_step=3: {f22}")
+    return out
 
 
 def main() -> None:
@@ -2320,7 +2601,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase(f"[12 tum] the {args.frames} bench frames as a TUM directory: PNG codec, loader, "
           f"run_tum and the rgbdslam-torch CLI")
-    tm = tum_phase(poses, rgbs, depths, dev, n_default)
+    # phase 12's TUM directories stay here for phase 15's batch evaluation
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tm = tum_phase(poses, rgbs, depths, dev, n_default, Path(work.name))
     launches_phase["tum"] = tm["launches"]
     launches_phase["tum_default"] = tm["default_launches"]
     st = tm["stats"]
@@ -2473,6 +2756,59 @@ def main() -> None:
                                            op[k][0]["refine_launches"],
                                            op[k][0]["kabsch_launches"])
                            for k in [*OPTIONS, "default"]})
+
+    # ---- 15. the bag and cloud inputs, batch evaluation, F22 --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"[15 bag] the bench frames through the bag and point-cloud inputs (make_pipe, "
+          f"the rgbdslam-torch CLI), batch evaluation over phase 12's TUM directories, and "
+          f"3 frames a step")
+    bp = bag_phase(poses, rgbs, depths, stamps, dev, Path(work.name))
+    work.cleanup()
+    nb, st = bp["bag_frames"], bp["stats"]
+    phase(f"[15 bag] {nb} frames written as a ROS bag (rgb8 + 32FC1 meters, /tf ground truth "
+          f"as /kinect, uncompressed chunks): {bp['bag_mib']:.1f} MiB in "
+          f"{bp['bag_write_s']:.2f} s; pairing the bag {bp['pair_s']:.3f} s; decode "
+          f"{bp['decode_ms']:.2f} ms a frame (RGB + depth, {BAG_DECODE_FRAMES} frames, equal "
+          f"to the written frames)")
+    phase(f"[15 bag] rgbdslam-torch run --bagfile --evaluate --save-bag -p "
+          f"ground_truth_frame_name=/kinect, make_pipe: ATE L0..L4 "
+          f"{' / '.join(f'{a:.4f}' for a in bp['ate'])} m (against the rendered poses "
+          f"within {bp['ate_diff']:.1e} m; run_arrays on the same frames: L4 "
+          f"{bp['ref_l4']:.4f} m); nodes {st['nodes']}, active "
+          f"edges {st['active_edges']}; detect launches {bp['launches'][0]}, refine "
+          f"{bp['launches'][1]}, Kabsch {bp['launches'][2]}; against run_arrays on the same "
+          f"frames: trajectory files L0..L4 {' / '.join(f'{d:.1e}' for d in bp['traj_diff'])} "
+          f"(limit 1e-5); result.bag positions within {bp['result_bag_diff']:.1e} m; whole "
+          f"command {bp['cli_s']:.1f} s; synchronizing calls in {bp['replay_groups']} "
+          f"replayed groups {bp['replay_syncs']}")
+    phase(f"[15 bag] fps, {nb} frames, alternating: run_bag "
+          f"{' / '.join(f'{x:.2f}' for x in bp['fps']['bag'])} (pairing included), run_arrays "
+          f"{' / '.join(f'{x:.2f}' for x in bp['fps']['arrays'])}")
+    phase(f"[15 bag] {bp['pcd_frames']} frames as organized binary PCDs (NaN rows for "
+          f"invalid depth): {bp['pcd_mib']:.1f} MiB, written {bp['pcd_write_ms']:.1f} ms a "
+          f"frame; load + cloud_to_rgbd {bp['pcd_load_ms']:.2f} ms a frame, depth bitwise and "
+          f"colours equal; rgbdslam-torch run --pcd-dir --evaluate, make_pipe: detect "
+          f"launches {bp['pcd_launches'][0]}, refine {bp['pcd_launches'][1]}; against "
+          f"run_arrays: trajectory files L0..L4 "
+          f"{' / '.join(f'{d:.1e}' for d in bp['pcd_traj_diff'])} (limit 1e-5); whole command "
+          f"{bp['pcd_cli_s']:.1f} s")
+    phase(f"[15 bag] evaluate_sequences on the card, 2 TUM directories x 2 configurations, "
+          f"{EVAL_FRAMES} frames each, in {bp['batch_s']:.1f} s: " + "; ".join(
+              f"{name}/{cfg} L4 {l4:.4f} m, {fps:.2f} fps, {nodes} nodes"
+              for name, cfg, l4, fps, nodes in bp["batch"])
+          + f"; summary.csv header + 4 rows; detect launches {bp['batch_launches'][0]}, "
+          f"refine {bp['batch_launches'][1]}")
+    f22 = bp["f22"]
+    phase(f"[15 bag] tpu_frames_per_step=3 (F22), {f22['frames']} frames in chunks "
+          f"{'/'.join(map(str, F22_CHUNKS))}: group lengths {f22['lengths']}, replayed groups "
+          f"by length {f22['replayed']} of {f22['groups']}, CUDA graphs captured "
+          f"{f22['captures']}, replays {f22['replays']}; against 1 frame a step eager: max "
+          f"pose difference {f22['diff']:.3e} (limit 1e-6), statistics equal "
+          f"{f22['stats_equal']}; synchronizing calls in replayed groups "
+          f"{f22['replay_syncs']}, idle waits {f22['replay_idle']}")
+    launches_phase.update(bag=bp["launches"], pcd=bp["pcd_launches"],
+                          batch_eval=bp["batch_launches"], frames_per_step_3=bp["f22_launches"])
 
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s; {phase_seconds()}")
     (dk, ek), (dp, ep) = times["frame"], times["frame_plain"]

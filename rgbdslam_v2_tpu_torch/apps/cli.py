@@ -4,9 +4,11 @@ Port of ``rgbdslam_v2_tpu/apps/cli.py`` (``run``, ``synthetic``, ``ate``,
 ``rpe`` and ``params``; reference ros_service_ui.cpp:55-122 and the offline
 batch evaluation, openni_listener.cpp:431):
 
-  run        process a TUM directory: trajectory, statistics or the 5-level
-             evaluation protocol, and the clouds, octomap, g2o graph and
-             features on request
+  run        process a TUM directory, a ROS bag (RGB-D images, or a
+             PointCloud2 topic with -p topic_points) or a directory of
+             PCD/PLY clouds: trajectory, statistics or the 5-level
+             evaluation protocol, and the clouds, octomap, g2o graph,
+             features and a result bag on request
   synthetic  write a synthetic RGB-D TUM directory with exact ground truth
              (rendered by the port's renderer)
   ate, rpe   a trajectory file against ground truth
@@ -26,14 +28,12 @@ from pathlib import Path
 
 # option -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_RUN = {
-    "pcd_dir": ("--pcd-dir", 26), "stereo_dir": ("--stereo-dir", 26),
-    "bagfile": ("--bagfile", 26), "save_mesh": ("--save-mesh", 26),
-    "save_bag": ("--save-bag", 26), "landmark_ba": ("--landmark-ba", 25),
-    "serve": ("--serve", 27),
+    "stereo_dir": ("--stereo-dir", "26b"), "save_mesh": ("--save-mesh", "26b"),
+    "landmark_ba": ("--landmark-ba", "25"), "serve": ("--serve", "27b"),
 }
 
 
-def _unported(option: str, item: int) -> int:
+def _unported(option: str, item: str) -> int:
     print(f"rgbdslam-torch: error: {option} is not in the PyTorch port yet "
           f"(ROADMAP Queue 1 item {item})", file=sys.stderr)
     return 2
@@ -65,21 +65,45 @@ def cmd_run(args) -> int:
         if getattr(args, key):
             return _unported(option, item)
     params = ParameterServer.from_cli(args.param or [])
-    if not args.tum_dir:
-        if params["bagfile_name"]:
-            return _unported("-p bagfile_name (ROS bag input)", 26)
-        print("rgbdslam-torch: error: --tum-dir is required", file=sys.stderr)
+    bagfile = args.bagfile or params["bagfile_name"]
+    if not (args.tum_dir or args.pcd_dir or bagfile):
+        print("rgbdslam-torch: error: one of --tum-dir, --pcd-dir or --bagfile is required",
+              file=sys.stderr)
         return 2
     cam = _cam_from_args(args, params)
     pipe = SlamPipeline(cam, params, device=args.device)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     pipe.online_octomap_path = str(out / "map_online.ot")
-    ds = TumDataset.open(args.tum_dir)
-    pipe.run_tum(ds, max_frames=args.max_frames)
     gt_stamps = gt_xyz = None
-    if ds.groundtruth is not None:
-        gt_stamps, gt_xyz = ds.groundtruth[:, 0].tolist(), ds.groundtruth[:, 1:4]
+    if args.tum_dir:
+        ds = TumDataset.open(args.tum_dir)
+        pipe.run_tum(ds, max_frames=args.max_frames)
+        if ds.groundtruth is not None:
+            gt_stamps, gt_xyz = ds.groundtruth[:, 0].tolist(), ds.groundtruth[:, 1:4]
+    elif args.pcd_dir:
+        # point-cloud files (loadPCDFiles, openni_listener.cpp:1063)
+        from ..io.cloud_input import CloudDataset
+
+        pipe.run_clouds(CloudDataset.open(args.pcd_dir, cam), max_frames=args.max_frames)
+    elif params["topic_points"]:
+        # a PointCloud2 topic in the bag (pcdCallback via topic_points)
+        from ..io.rosbag import read_cloud_frames
+
+        pipe.run_clouds(read_cloud_frames(bagfile, params["topic_points"]),
+                        max_frames=args.max_frames)
+    else:
+        pipe.run_bag(bagfile, max_frames=args.max_frames)
+        # ground truth from /tf only when a child frame is named: real bags
+        # carry calibration transforms on /tf too (ground_truth_frame_name,
+        # parameter_server.cpp:75)
+        if params["ground_truth_frame_name"]:
+            from ..io.rosbag import read_tf_trajectory
+
+            tf_stamps, tf_rows = read_tf_trajectory(
+                bagfile, child_frame=params["ground_truth_frame_name"])
+            if len(tf_stamps):
+                gt_stamps, gt_xyz = tf_stamps.tolist(), tf_rows[:, :3]
     if args.evaluate or params["batch_processing"]:
         report = pipe.evaluation_protocol(out, gt_stamps=gt_stamps, gt_xyz=gt_xyz)
         print(json.dumps(report.as_dict(), indent=2))
@@ -101,6 +125,9 @@ def cmd_run(args) -> int:
         print("saved features.npz")
     if args.save_individual:
         print(f"saved {len(pipe.save_individual_clouds(out / 'clouds'))} per-node clouds")
+    if args.save_bag:
+        pipe.save_bagfile(out / "result.bag")
+        print("saved result.bag")
     return 0
 
 
@@ -109,7 +136,7 @@ def cmd_synthetic(args) -> int:
     from ..io.synthetic import SyntheticWorld, render_sequence, save_as_tum_dataset
 
     if args.stereo > 0:
-        return _unported("synthetic --stereo", 26)
+        return _unported("synthetic --stereo", "26b")
     cam = (Intrinsics(fx=130.0, fy=130.0, cx=80.0, cy=60.0, width=160, height=120)
            if args.small else TUM_DEFAULT)
     world = SyntheticWorld.create(seed=args.seed, cam=cam)
@@ -165,8 +192,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="rgbdslam-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    runp = sub.add_parser("run", help="run SLAM on a TUM directory")
+    runp = sub.add_parser("run", help="run SLAM on a TUM directory, a ROS bag or PCD/PLY files")
     runp.add_argument("--tum-dir", default=None)
+    runp.add_argument("--bagfile", default=None,
+                      help="ROS bag input (or -p bagfile_name); -p topic_points reads a "
+                           "PointCloud2 topic instead of the image topics")
+    runp.add_argument("--pcd-dir", default=None, help="directory of .pcd/.ply clouds")
     runp.add_argument("--out", required=True)
     runp.add_argument("--camera", default="default", help="fr1|fr2|default or fx,fy,cx,cy,w,h")
     runp.add_argument("--max-frames", type=int, default=None)
@@ -179,12 +210,13 @@ def build_parser() -> argparse.ArgumentParser:
     runp.add_argument("--save-features", action="store_true")
     runp.add_argument("--save-individual", action="store_true",
                       help="one cloud file per node (saveIndividualClouds)")
+    runp.add_argument("--save-bag", action="store_true",
+                      help="the trajectory as /tf in result.bag (saveBagfile)")
     runp.add_argument("--device", default=None,
                       help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     # inputs and outputs of the JAX CLI that the port does not have yet
-    for option in ("--pcd-dir", "--stereo-dir", "--bagfile"):
-        runp.add_argument(option, default=None, help=argparse.SUPPRESS)
-    for option in ("--save-mesh", "--save-bag", "--landmark-ba"):
+    runp.add_argument("--stereo-dir", default=None, help=argparse.SUPPRESS)
+    for option in ("--save-mesh", "--landmark-ba"):
         runp.add_argument(option, action="store_true", help=argparse.SUPPRESS)
     runp.add_argument("--serve", type=int, default=None, help=argparse.SUPPRESS)
     runp.set_defaults(fn=cmd_run)

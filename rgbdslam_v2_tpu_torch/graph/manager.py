@@ -109,7 +109,6 @@ def fast_path(p: ParameterServer) -> bool:
             and p["min_rotation_degree"] <= 0)
 
 
-FRAMES_PER_STEP = (1, 2, 4, 8)
 # tpu_descriptor_dtype -> the store's dtype for the binary families
 DESC_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16, "float32": torch.float32}
 
@@ -149,7 +148,6 @@ def check_slice(p: ParameterServer) -> None:
         "tpu_ingest_format": p["tpu_ingest_format"] not in ("yc12", "ydct", "raw"),
         "tpu_gray_bits": p["tpu_gray_bits"] not in (5, 6, 8),
         "tpu_depth_bits": p["tpu_depth_bits"] not in (10, 12),
-        "tpu_frames_per_step": p["tpu_frames_per_step"] not in FRAMES_PER_STEP,
         "tpu_edge_info": p["tpu_edge_info"] not in ("scalar", "hessian"),
         "tpu_approx_select": p["tpu_approx_select"],
         "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] not in DESC_DTYPES,

@@ -1,10 +1,11 @@
 """SLAM pipeline: frames -> graph -> trajectories, maps and the 5-level protocol.
 
 Port of ``rgbdslam_v2_tpu/pipeline/slam.py``: ``SlamPipeline.process_frame``
-(without the paused and live-view state), ``run_arrays`` and ``run_tum``
-(frames grouped ``tpu_frames_per_step`` a step on the keep-all fast path,
-host encodes run ahead on a worker thread with ``tpu_encode_ahead``; both
-share one loop over a frame source, ``_run_frames``), the online octomap
+(without the paused and live-view state), ``run_arrays``, ``run_tum``,
+``run_bag`` and ``run_clouds`` (frames grouped ``tpu_frames_per_step`` a
+step on the keep-all fast path, host encodes run ahead on a worker thread
+with ``tpu_encode_ahead``; all share one loop over a frame source,
+``_run_frames``), ``save_bagfile``, the online octomap
 (``octomap_online_creation``, ``octomap_autosave_step``), the writers
 ``save_clouds``, ``save_individual_clouds``, ``save_octomap``,
 ``save_g2o`` and ``save_features`` over ``_node_world_cloud``, and
@@ -107,12 +108,33 @@ class SlamPipeline:
         if step > 0 and self._online_inserts % step == 0:
             self._online_map.save(self.online_octomap_path)
 
+    def _frame_indices(self, n: int, max_frames: Optional[int] = None) -> List[int]:
+        """The positions of a source's n frames that run: skip_first_n_frames,
+        then every data_skip_step-th, at most max_frames of them."""
+        p = self.params
+        idxs = list(range(p["skip_first_n_frames"], n, max(1, p["data_skip_step"])))
+        return idxs[:max_frames] if max_frames else idxs
+
+    @staticmethod
+    def _in_order(enc_at):
+        """enc_at held to _run_frames' contract: each position asked for
+        once, in increasing order (a loader hands frames out in order, and
+        the delta wire's encode advances with each call)."""
+        expected = [0]
+
+        def guarded(pos):
+            if pos != expected[0]:
+                raise RuntimeError(f"frame {pos} asked for out of order (next {expected[0]})")
+            expected[0] += 1
+            return enc_at(pos)
+
+        return guarded
+
     def run_arrays(self, rgbs, depths, stamps, gt_poses=None) -> None:
         """Feed pre-loaded host arrays (skip_first_n_frames, data_skip_step
         honoured); the first processed frame is anchored at its ground-truth
         pose when given."""
-        p = self.params
-        idxs = list(range(p["skip_first_n_frames"], len(rgbs), max(1, p["data_skip_step"])))
+        idxs = self._frame_indices(len(rgbs))
         if not idxs:
             return
         mgr = self.manager
@@ -126,35 +148,116 @@ class SlamPipeline:
         of the encodes, in order. Returns the loader's waits: {"waits":
         frames asked for before their decode finished, "wait_s": seconds
         spent waiting for them}."""
-        p = self.params
-        idxs = list(range(p["skip_first_n_frames"], len(dataset), max(1, p["data_skip_step"])))
-        if max_frames:
-            idxs = idxs[:max_frames]
+        idxs = self._frame_indices(len(dataset), max_frames)
         if not idxs:
             return {"waits": 0, "wait_s": 0.0}
         mgr = self.manager
         loader = TumLoader(dataset, idxs)
-        expected = [0]
 
         def enc_at(pos):
-            # _run_frames asks for each position once, in order
-            if pos != expected[0]:
-                raise RuntimeError(f"frame {pos} asked for out of order (next {expected[0]})")
-            expected[0] += 1
             _ts, rgb, depth = next(loader)
             return mgr.encode(rgb, depth)
 
         try:
-            self._run_frames([dataset.pairs[i][0] for i in idxs], enc_at, None)
+            self._run_frames([dataset.pairs[i][0] for i in idxs], self._in_order(enc_at), None)
         finally:
             loader.close()
         return {"waits": loader.waits, "wait_s": loader.wait_s}
+
+    def run_bag(self, bag_path, max_frames: Optional[int] = None) -> None:
+        """ROS bag playback, the reference's offline entry (processBagfile,
+        src/openni_listener.cpp:218-340): the bag's RGB (topic_image_mono)
+        and depth (topic_image_depth) messages are paired by approximate time
+        up front (drop_async_frames honoured), so the kept frames' stamps are
+        known; each frame's arrays decode from the bag when its encode runs
+        (skip_first_n_frames, data_skip_step, max_frames and
+        depth_scaling_factor honoured, as in the JAX run_bag). The intrinsics
+        are the pipeline's: the bag's CameraInfo is not read, as in the JAX
+        package (ROADMAP F5)."""
+        from ..io.rosbag import pair_rgbd_messages
+
+        p = self.params
+        pairs = pair_rgbd_messages(bag_path, rgb_topic=p["topic_image_mono"],
+                                   depth_topic=p["topic_image_depth"],
+                                   drop_async=p["drop_async_frames"])
+        idxs = self._frame_indices(len(pairs), max_frames)
+        if not idxs:
+            return
+        mgr = self.manager
+
+        def enc_at(pos):
+            rgb, depth = pairs[idxs[pos]]
+            return mgr.encode(rgb.as_array(), depth.as_array())
+
+        self._run_frames([pairs[i][0].stamp for i in idxs], self._in_order(enc_at), None)
+
+    def run_clouds(self, source, max_frames: Optional[int] = None) -> None:
+        """Point-cloud input (the reference's second Node ctor,
+        node.cpp:252-369; pcdCallback, openni_listener.cpp:536; PCD file
+        loading :1063-1100). ``source`` is an io.cloud_input.CloudDataset,
+        whose files load when their encode runs, or an iterable of (stamp,
+        points, colors), whose kept clouds are taken up front and converted
+        when their encode runs. Clouds become the organized RGB-D grid
+        (cloud_to_rgbd) at this boundary, so the same per-frame step runs
+        (skip_first_n_frames, data_skip_step, max_frames and
+        depth_scaling_factor honoured, as in the JAX run_clouds)."""
+        from ..io.cloud_input import cloud_to_rgbd
+
+        mgr = self.manager
+        if hasattr(source, "load"):
+            idxs = self._frame_indices(len(source), max_frames)
+            stamps = [source.stamps[i] for i in idxs]
+
+            def enc_at(pos):
+                _ts, rgb, depth = source.load(idxs[pos])
+                return mgr.encode(rgb, depth)
+        else:
+            p = self.params
+            skip0, step = p["skip_first_n_frames"], max(1, p["data_skip_step"])
+            clouds = []
+            for k, item in enumerate(source):
+                if max_frames and len(clouds) >= max_frames:
+                    break
+                if k >= skip0 and (k - skip0) % step == 0:
+                    clouds.append(item)
+            stamps = [c[0] for c in clouds]
+
+            def enc_at(pos):
+                _ts, pts, cols = clouds[pos]
+                return mgr.encode(*cloud_to_rgbd(pts, cols, self.cam))
+        if stamps:
+            self._run_frames(stamps, self._in_order(enc_at), None)
+
+    def save_bagfile(self, path, include_clouds: bool = False) -> str:
+        """The optimized result as a bag (saveBagfile,
+        src/graph_mgr_io.cpp:102-150): one /map -> /camera tf a node at its
+        stamp; with include_clouds also each node's stored stride-s depth
+        (32FC1 meters, on topic_image_depth) and, where the store keeps
+        colour, its colour (rgb8, on topic_image_mono)."""
+        from ..io.rosbag import BagWriter, TransformStamped
+
+        mgr = self.manager
+        stamps, poses = mgr.trajectory()
+        quats = se3.rot_to_quat(torch.from_numpy(poses[:, :3, :3])).numpy()
+        cs = mgr.cam_small
+        with BagWriter(path) as bag:
+            for nid, (t, T) in enumerate(zip(stamps, poses)):
+                bag.write_tf([TransformStamped(float(t), "/map", "/camera", T[:3, 3].copy(),
+                                               quats[nid])])
+                if include_clouds:
+                    depth = mgr.store.depth[nid].view(cs.height, cs.width).cpu().numpy()
+                    bag.write_image(self.params["topic_image_depth"], float(t), depth)
+                    if mgr.store.color.shape[1] > 3:
+                        rgb = mgr.store.color[nid].view(cs.height, cs.width, 3).cpu().numpy()
+                        bag.write_image(self.params["topic_image_mono"], float(t), rgb)
+        return str(path)
 
     def _run_frames(self, stamps, enc_at, gt0) -> None:
         """The frames of a source, in order: enc_at(pos) is frame pos's host
         wire, asked for once a position, in increasing order; gt0 anchors
         the first node. Where the manager can group them, frames go
-        tpu_frames_per_step at a time through one step call. With
+        tpu_frames_per_step (clamped to [1, 8]) at a time through one step
+        call, the tail in a shorter group. With
         tpu_encode_ahead one worker thread keeps the next two host encodes
         in flight (the same wires, so the same result). Under the delta
         wire the encodes wait for their dispatch (the host mirror advances
@@ -163,7 +266,7 @@ class SlamPipeline:
         p = self.params
         mgr = self.manager
         n = len(stamps)
-        ngroup = int(p["tpu_frames_per_step"])
+        ngroup = max(1, min(int(p["tpu_frames_per_step"]), 8))  # the JAX package's clamp
         if mgr.wire_delta:
             ngroup = min(ngroup, 2)
         ex = (ThreadPoolExecutor(1, thread_name_prefix="encode-ahead")

@@ -18,11 +18,13 @@ import torch  # noqa: E402
 
 from rgbdslam_v2_tpu.config import ParameterServer as JParams  # noqa: E402
 from rgbdslam_v2_tpu.core.camera import Intrinsics as JIntrinsics  # noqa: E402
+from rgbdslam_v2_tpu.graph.manager import GraphManager as JManager  # noqa: E402
 from rgbdslam_v2_tpu.io import SyntheticWorld as JWorld, render_sequence as jrender  # noqa: E402
 from rgbdslam_v2_tpu.pipeline import SlamPipeline as JPipeline  # noqa: E402
 from rgbdslam_v2_tpu_torch import interop  # noqa: E402
 from rgbdslam_v2_tpu_torch.config import ParameterServer  # noqa: E402
 from rgbdslam_v2_tpu_torch.core.camera import Intrinsics  # noqa: E402
+from rgbdslam_v2_tpu_torch.graph.manager import GraphManager  # noqa: E402
 from rgbdslam_v2_tpu_torch.io import render_sequence  # noqa: E402
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline  # noqa: E402
 from test_torch_native_compact import jax_native_encoder  # noqa: E402,F401
@@ -76,12 +78,19 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 @pytest.mark.parametrize("override", [
     {"use_robot_odom": True}, {"start_paused": True}, {"global_loop_candidates": 2},
-    {"tpu_frames_per_step": 3},
 ])
 def test_config_outside_the_slice_raises(override):
     name = next(iter(override))
     with pytest.raises(NotImplementedError, match=name):
         SlamPipeline(Intrinsics(*CAM), ParameterServer({**PARAMS, **override}), device="cpu")
+
+
+def _recorded(add_frame_group, sizes):
+    """add_frame_group that appends each group's length to sizes."""
+    def spy(self, compacts, tss):
+        sizes.append(len(compacts))
+        return add_frame_group(self, compacts, tss)
+    return spy
 
 
 def _limit(jax_l4):
@@ -97,18 +106,30 @@ def _limit(jax_l4):
     {"tpu_wire_delta": True, "tpu_frames_per_step": 2, "tpu_wire_delta_max_clamp": 0.6},
     {"tpu_edge_info": "hessian"}, {"tpu_emm_exact": True},
     {"g2o_transformation_refinement": 2},
+    {"tpu_frames_per_step": 3}, {"tpu_frames_per_step": 12},
 ])
-def test_config_runs_as_in_jax(sequence, tmp_path, override):
+def test_config_runs_as_in_jax(sequence, tmp_path, override, monkeypatch):
     """Options the port once refused: the configuration runs through both
     packages on the same frames; the port's accepted edges within 25% of
-    the JAX package's and its L4 within max(1.5 x, + 5 mm) of it. (A delta
-    clamp budget of 0.6 lets P wires through at this size.)"""
+    the JAX package's and its L4 within max(1.5 x, + 5 mm) of it, its frames
+    grouped as the JAX package groups them (tpu_frames_per_step clamped to
+    [1, 8], a shorter tail group). (A delta clamp budget of 0.6 lets P
+    wires through at this size.)"""
     params = {**PARAMS, **override}
+    groups = {}
+    for name, cls in (("jax", JManager), ("torch", GraphManager)):
+        sizes = groups[name] = []
+        monkeypatch.setattr(cls, "add_frame_group", _recorded(cls.add_frame_group, sizes))
     jpipe = JPipeline(JIntrinsics(*CAM), JParams(dict(params)))
     jrep, j_acc = _run(jpipe, sequence, tmp_path / "jax")
     tpipe = SlamPipeline(Intrinsics(*CAM), ParameterServer(dict(params)), device="cpu")
     trep, t_acc = _run(tpipe, sequence, tmp_path / "torch")
     assert tpipe.manager.n_nodes == jpipe.manager.n_nodes == N_FRAMES
+    assert groups["torch"] == groups["jax"]
+    if "tpu_frames_per_step" in override and not override.get("tpu_wire_delta"):
+        n = min(override["tpu_frames_per_step"], 8)
+        assert groups["torch"] == [n] * ((N_FRAMES - 1) // n) + [(N_FRAMES - 1) % n] * (
+            (N_FRAMES - 1) % n > 1), groups
     assert abs(t_acc - j_acc) <= 0.25 * j_acc, (t_acc, j_acc)
     assert trep.ate_rmse[4] <= _limit(jrep.ate_rmse[4]), (trep.ate_rmse, jrep.ate_rmse)
     m, jm = tpipe.manager, jpipe.manager

@@ -12,9 +12,13 @@ ray-walk insert on the card against the CPU on rendered 640x480 node clouds
 (the states equal: every update adds one constant, or an integer below
 2^24) and its ray lengths on 2^20 random vectors (bitwise); run_tum on the card against run_arrays on the decoded frames (poses equal,
 with no online optimize: its atomic adds on the card let two runs differ in
-the last bits); and a checkpoint continued in a fresh pipeline with the
-online optimize on (poses within 1e-5 m).
+the last bits); a checkpoint continued in a fresh pipeline with the
+online optimize on (poses within 1e-5 m); and run_bag on the card against
+run_arrays on the frames the bag holds (poses equal, no synchronizing call
+in a replayed group).
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +29,7 @@ from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT, Intrinsics, backproje
 from rgbdslam_v2_tpu_torch.io import (SyntheticWorld, TumDataset, render_sequence,
                                       save_as_tum_dataset)
 from rgbdslam_v2_tpu_torch.io import png
+from rgbdslam_v2_tpu_torch.io.rosbag import pair_rgbd_messages, write_rgbd_bag
 from rgbdslam_v2_tpu_torch.mapping import VoxelMap, VoxelMapConfig
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
@@ -138,6 +143,53 @@ def test_run_tum_on_the_card_equals_run_arrays(frames, tmp_path):
     np.testing.assert_array_equal(a.manager.poses(), b.manager.poses())
     assert a.manager.statistics() == b.manager.statistics()
     assert a.manager.step_graph.replays > 0
+
+
+def _replayed_group_syncs(pipe) -> list:
+    """Wrap pipe._process_group: for each group that only replayed a
+    captured graph, the synchronizing calls it made (sync debug warnings)."""
+    sg, group, out = pipe.manager.step_graph, pipe._process_group, []
+
+    def watched(*a):
+        before = (sg.captures, sg.eager_groups)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                group(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if (sg.captures, sg.eager_groups) == before:
+            out.append([f"{w.filename}:{w.lineno}" for w in rec if "synchroniz" in str(w.message)])
+
+    pipe._process_group = watched
+    return out
+
+
+@pytest.mark.cuda
+def test_run_bag_on_the_card_equals_run_arrays(frames, tmp_path):
+    """A 24-frame bag (u16 depth written as 32FC1 meters, ground truth on
+    /tf) through run_bag with make_pipe's grouping and encode-ahead, against
+    run_arrays on the meters and stamps the bag gives back."""
+    dev = _cuda()
+    poses, rgbs, d16 = frames
+    bag = write_rgbd_bag(tmp_path / "seq.bag", np.arange(24) / 30.0, rgbs, d16, gt_poses=poses)
+    stamps = [r.stamp for r, _ in pair_rgbd_messages(bag)]
+    params = dict(max_keypoints=600, tpu_max_nodes=64, tpu_max_edges=1024,
+                  tpu_candidate_batch=8, ransac_iterations=200, optimizer_skip_step=1000,
+                  keep_all_nodes=True, observability_threshold=0.5,
+                  pose_relative_to="inaffected", emm_skip_step=4, tpu_ingest_format="ydct",
+                  tpu_dct_quality="2.7", tpu_depth_bits=10, tpu_frames_per_step=4,
+                  tpu_encode_ahead=True)
+    a = SlamPipeline(TUM_DEFAULT, ParameterServer(dict(params)), device=dev)
+    replayed = _replayed_group_syncs(a)
+    a.run_bag(bag)
+    b = SlamPipeline(TUM_DEFAULT, ParameterServer(dict(params)), device=dev)
+    b.run_arrays(rgbs, d16.astype(np.float32) / np.float32(5000.0), stamps)
+    assert a.manager.n_nodes == b.manager.n_nodes == 24
+    np.testing.assert_array_equal(a.manager.poses(), b.manager.poses())
+    assert a.manager.statistics() == b.manager.statistics()
+    assert replayed and not any(replayed), replayed
 
 
 @pytest.mark.cuda
