@@ -217,6 +217,37 @@ and prints no result:
      (F22_CHUNKS) whose tails hold 2 frames: groups of 3 and of 2 each
      replayed, poses within 1e-6 of 1 frame a step eager, equal
      statistics, 0 syncs and 0 idle waits in replayed groups.
+ 16. loop retrieval, robot odometry, landmark BA, empirical covariances,
+     the stereo input and the mesh output, at 640x480: make_pipe with
+     global_loop_candidates=2 on the bench frames as phase 6 drives it
+     (fps, graph, loop edges and the longest loop span, retrievals and the
+     hits they added, launches, 0 syncs and 0 idle waits in replayed
+     groups, peak memory, L4 at most 0.03 m); one retrieval on its final
+     store and on stores filled to RETRIEVAL_STORES nodes: the chunked
+     counts equal the capacity-wide plain version's, device ms (profiler)
+     and event span, the peak memory it adds, its bound; landmark BA on the
+     run's graph (landmarks, observations, chi2 must fall, wall s), the
+     empirical covariances (ms; finite information with positive
+     diagonals), save_graph_viz (one line an active edge); the same
+     configuration with room for hits (RETRIEVAL_EQUAL) on EQUAL_FRAMES
+     frames, 4 a step replayed against the same groups eager (poses
+     equal exactly, hits taken); plain make_pipe against it with
+     retrieval, fps in clean processes (tools/make_pipe_fps.py,
+     RETRIEVAL_FPS_FRAMES frames, alternating); default_params() with
+     retrieval on HOST_FRAMES frames (a frame synchronizes once in
+     graph/manager.py and once more a retrieval in loop_closing.py, L4
+     within max(1.5 x, + 5 mm) of HOST_RETRIEVAL_L4_JAX); default_params()
+     with ground-truth odometry, odometry only (positions within 1e-3 m,
+     one odometry edge a frame, no refine launch) and beside the visual
+     edges (an odometry edge a node, L4 at most DEFAULT_ATE_L4_MAX);
+     `rgbdslam-torch synthetic --stereo 0.075` over STEREO_FRAMES frames,
+     the disparity of STEREO_CHECK_FRAMES pairs on the card equal to the
+     CPU's on at least 99.9% of the pixels, the front end's device ms a
+     frame against its bound, then `run --stereo-dir --evaluate
+     --save-mesh` with make_pipe (L4 within max(1.5 x, + 5 mm) of
+     STEREO_L4_JAX, detect = frames, refine = frames - 1, run_stereo fps)
+     and mesh.ply parsed, its faces and colours equal to the CPU's mesh of
+     the same state and its vertices within 1e-5 m.
 Phase 2 also holds the refine kernel with its projective stage
 (projective_iterations PROJ_ITERATIONS) to its plain version in float64.
 
@@ -226,7 +257,7 @@ each later phase's; the Kabsch kernel's are 0 there, its refits having
 moved into the refine kernel; the refine kernel with its projective stage
 has an entry of its own, launched on phase 14's refinement runs); the last
 line is {"ok": true, "device": {...}}. --frames N (at least 23; phase 15's
-F22 check needs 60) shortens phases 3-15 to N frames each.
+F22 check needs 60) shortens phases 3-16 to N frames each.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -1117,8 +1148,8 @@ def run_cli(argv) -> tuple:
     captured: (exit code, stdout, the SlamPipeline it built or None), its
     stderr printed to ours where the code is not 0 (an exception other than
     the CLI's own errors propagates with its traceback); the
-    pipeline's save_clouds and save_octomap are timed (host clock,
-    synchronized; key "save_ms" on the pipeline)."""
+    pipeline's save_clouds, save_octomap, save_mesh and run_stereo are timed
+    (host clock, synchronized; key "save_ms" on the pipeline)."""
     import io
 
     import torch
@@ -1146,6 +1177,12 @@ def run_cli(argv) -> tuple:
 
         def save_octomap(self, *a, **kw):
             return self._timed("save_octomap", super().save_octomap, *a, **kw)
+
+        def run_stereo(self, *a, **kw):
+            return self._timed("run_stereo", super().run_stereo, *a, **kw)
+
+        def save_mesh(self, *a, **kw):
+            return self._timed("save_mesh", super().save_mesh, *a, **kw)
 
     buf, err = io.StringIO(), io.StringIO()
     with (patched(pipeline_pkg, "SlamPipeline", Recorded), contextlib.redirect_stdout(buf),
@@ -1925,6 +1962,584 @@ def bag_phase(poses, rgbs, depths, stamps, dev, root: Path) -> dict:
             or f22["replay_idle"]):
         fail(f"tpu_frames_per_step=3: {f22}")
     return out
+
+
+# phase 16: loop retrieval, robot odometry, landmark BA, empirical
+# covariances, the stereo input and the mesh output
+RETRIEVAL = dict(global_loop_candidates=2)
+# the replay = eager runs: room among the candidates for the retrieval's
+# hits (make_pipe's 4 predecessors and 4 geodesic neighbours fill its 8
+# slots once the graph has grown) and no online optimize
+RETRIEVAL_EQUAL = dict(global_loop_candidates=2, neighbor_candidates=1, min_sampled_candidates=0,
+                       optimizer_skip_step=100)
+RETRIEVAL_STORES = (1024, 4096)  # node capacities of the filled stores
+RETRIEVAL_FLIP = 0.03  # bits flipped in each further copy of a tiled node
+RETRIEVAL_FPS_FRAMES = 260  # frames of each clean-process fps run
+HOST_FRAMES = 60  # the default path with retrieval; the odometry runs
+STEREO_FRAMES = 120
+STEREO_BASELINE = 0.075  # metres (stereo_baseline's default)
+STEREO_SEED = 1  # synthetic --seed: world 1, orbit seed 2
+STEREO_CHECK_FRAMES = (0, 60, 119)  # pairs whose disparity runs on the card and the CPU
+# The JAX package's protocol L4 (m) with RANSAC seeds 0-3 (tpu_seed) on the
+# same frames, on the CPU; the bound is max(1.5 x, + 5 mm) of their mean
+# (option_limit). Stereo: the JAX CLI on its own synthetic --stereo render,
+#   JAX_PLATFORMS=cpu python -m rgbdslam_v2_tpu.apps.cli synthetic --out D
+#       --frames 120 --seed 1 --stereo 0.075
+#   JAX_PLATFORMS=cpu python -m rgbdslam_v2_tpu.apps.cli run --stereo-dir D
+#       --out O --camera default --evaluate -p stereo_baseline=0.075
+#       -p tpu_seed=S [make_pipe_flags()]
+# The default path with retrieval on the bench orbit's first 60 frames:
+#   JAX_PLATFORMS=cpu python3 tools/make_pipe_same_frames.py --packages jax
+#       --seeds 0 1 2 3 --frames 60 --config default
+#       --set global_loop_candidates=2
+STEREO_L4_JAX = (0.0092, 0.0089, 0.0089, 0.0097)
+HOST_RETRIEVAL_L4_JAX = (0.0107, 0.0109, 0.0105, 0.0116)
+RETRIEVAL_FLOPS_PER_TERM = 2  # a multiply and an add of the float32 distance matmul
+
+
+def phase16_reset():
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
+
+    detect.reset_launches()
+    registration.reset_launches()
+    alignment.reset_launches()
+
+
+def phase16_launches() -> tuple:
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
+
+    return detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES
+
+
+def filled_store(store, n: int, N: int, seed: int = 0):
+    """A store of N nodes on store's device whose rows tile store's first n
+    (keypoints, descriptors, validity); each further copy of a row has
+    RETRIEVAL_FLIP of its descriptor signs flipped, so the copies are near
+    matches of one another and not ties. The depth and colour planes are
+    left out (one column): retrieval reads none of them."""
+    import torch
+    from rgbdslam_v2_tpu_torch.graph.node_store import NodeStore
+
+    dev = store.desc.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    idx = torch.arange(N, device=dev) % n
+    desc = store.desc[idx].clone()
+    flip = (torch.rand(desc.shape, generator=gen, device=dev) < RETRIEVAL_FLIP)
+    flip &= (torch.arange(N, device=dev) >= n)[:, None, None]
+    desc = torch.where(flip, -desc, desc)
+    one = torch.zeros((N, 1), device=dev)
+    return NodeStore(uv=store.uv[idx].clone(), xyz=store.xyz[idx].clone(), desc=desc,
+                     kp_valid=store.kp_valid[idx].clone(), depth=one,
+                     emm_lohi=one.to(torch.int32), color=one.to(torch.uint8))
+
+
+def retrieval_numbers(store, n_nodes: int, queries, plain_rows: int = 0) -> dict:
+    """One deferred retrieval (global_match_scores_from_store) against
+    store's first n_nodes nodes: its counts against the capacity-wide plain
+    version for each query id (equal, or it fails), its device ms (profiler,
+    mean of 3 calls) and event span, the peak memory it adds, and its bound
+    (the store rows and the query read once, the counts written once, or
+    the float32 matmul's multiply-adds at 67 TFLOP/s, the larger)."""
+    import torch
+    from rgbdslam_v2_tpu_torch.graph import loop_closing as lc
+
+    N, K, D = store.desc.shape
+    out = {"n_nodes": n_nodes, "capacity": N, "nonzero": 0}
+    for q in queries:
+        got = lc.global_match_scores_from_store(store, q, n_nodes)
+        plain = lc.global_match_scores_plain(
+            lc.query_from_store(store, q), store, torch.arange(N, device=store.desc.device)
+            < n_nodes, lc.exclude_window_mask(N, q, 8, store.desc.device),
+            query_rows=plain_rows)
+        if not torch.equal(got, plain):
+            fail(f"retrieval at {n_nodes} of {N} nodes, query {q}: chunked counts differ from "
+                 f"the plain version's at {int((got != plain).sum())} nodes")
+        out["nonzero"] += int((got > 0).sum())
+    q = queries[-1]
+
+    def call():
+        return lc.global_match_scores_from_store(store, q, n_nodes)
+
+    out["ms"] = device_ms(call, n=3)
+    out["event_ms"] = median_ms(call, n=3)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    esize = store.desc.element_size()
+    nbytes = K * D * esize + n_nodes * K * (D * esize + 1) + N * 4
+    flops = RETRIEVAL_FLOPS_PER_TERM * K * n_nodes * K * D
+    out["bound_ms"], out["bound_by"] = max(
+        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (flops / 67e12 * 1e3, "operations"))
+    out["gflop"] = flops / 1e9
+    return out
+
+
+def retrieval_replay_vs_eager(poses, rgbs, depths, stamps, dev) -> dict:
+    """make_pipe_params(**RETRIEVAL_EQUAL) at 4 frames a step, the groups
+    replayed as CUDA graphs against the same groups run eagerly (the
+    manager without its StepGraph): max pose difference, equal statistics
+    and retrieval hits."""
+    import numpy as np
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    runs = {}
+    for kind in ("replay", "eager"):
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(**RETRIEVAL_EQUAL), device=dev)
+        if kind == "eager":
+            pipe.manager.step_graph = None
+        pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
+        m = pipe.manager
+        runs[kind] = (m.poses(), m.statistics(), m.retrievals, m.retrieval_hits,
+                      0 if m.step_graph is None else m.step_graph.replays)
+        del pipe, m
+    (pr, sr, rr, hr, nr), (pe, se, re_, he, _) = runs["replay"], runs["eager"]
+    return dict(diff=float(np.abs(pr - pe).max()), stats_equal=sr == se, replays=nr,
+                retrievals=(rr, re_), hits=(hr, he), loop_edges=sr["loop_edges"],
+                frames=len(rgbs))
+
+
+def clean_process_fps(poses, rgbs, depths, stamps, root: Path) -> dict:
+    """tools/make_pipe_fps.py on the first RETRIEVAL_FPS_FRAMES frames, one
+    process a run: plain make_pipe and make_pipe with RETRIEVAL, in the
+    order plain, retrieval, retrieval, plain."""
+    import numpy as np
+
+    n = min(RETRIEVAL_FPS_FRAMES, len(rgbs))
+    d = root / "fps_frames"
+    d.mkdir()
+    for name, arr in (("poses", poses), ("rgbs", rgbs), ("depths", depths), ("stamps", stamps)):
+        np.save(d / f"{name}.npy", np.ascontiguousarray(arr[:n]))
+    out = {"plain": [], "retrieval": [], "frames": n}
+    for name in ("plain", "retrieval", "retrieval", "plain"):
+        sets = [x for k, v in RETRIEVAL.items() for x in ("--set", f"{k}={v}")] \
+            if name == "retrieval" else []
+        r = subprocess.run([sys.executable, str(ROOT / "tools" / "make_pipe_fps.py"), str(d),
+                            *sets], capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"tools/make_pipe_fps.py ({name}) exited {r.returncode}: {r.stderr[-2000:]}")
+        out[name].append(json.loads(r.stdout.strip().splitlines()[-1]))
+    shutil.rmtree(d)
+    return out
+
+
+def loop_spans(mgr) -> list:
+    from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_LOOP
+
+    return [abs(p[0] - p[1]) for t, p in zip(mgr.host.edge_types, mgr.host.edge_pairs)
+            if t == EDGE_LOOP and p is not None]
+
+
+def host_path_run(poses, rgbs, depths, stamps, dev, params) -> dict:
+    """`params` (a default-path configuration) frame by frame, as
+    tools/make_pipe_same_frames.py drives it (WARMUP frames, a blocking
+    optimize, the rest), each frame's synchronizing calls recorded outside
+    the online optimize (which reads its convergence flag on this path),
+    with the retrievals it ran; then the protocol."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    pipe = SlamPipeline(TUM_DEFAULT, params, device=dev)
+    mgr = pipe.manager
+    online = mgr.optimize
+
+    def unwatched_optimize(*a, **kw):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return online(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    mgr.optimize = unwatched_optimize
+    frames, t0 = [], time.perf_counter()
+    for i in range(len(rgbs)):
+        before = mgr.retrievals
+        sites = sync_sites(lambda: pipe.process_frame(
+            rgbs[i], depths[i], float(stamps[i]), gt_pose=poses[0] if i == 0 else None))
+        frames.append(([s.split(":")[0] for s in sites], mgr.retrievals - before))
+        if i == WARMUP - 1:
+            online(blocking=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del mgr.optimize
+    with tempfile.TemporaryDirectory() as td:
+        rep = pipe.evaluation_protocol(td, gt_stamps=list(stamps), gt_xyz=poses[:, :3, 3])
+    est = mgr.poses()
+    return dict(pipe=pipe, frames=frames, wall=wall, stats=rep.statistics,
+                ate=[rep.ate_rmse.get(lvl, float("nan")) for lvl in range(5)],
+                poses_ok=bool(np.isfinite(est).all()))
+
+
+def cpu_copy(pipe):
+    """A CPU pipeline with the same camera and parameters holding a copy of
+    pipe's store and graph (and sharing its host bookkeeping)."""
+    import dataclasses
+
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    cpu = SlamPipeline(pipe.cam, pipe.params, device="cpu")
+    src, dst = pipe.manager, cpu.manager
+    for a, b in ((src.store, dst.store), (src.graph, dst.graph)):
+        for f in dataclasses.fields(a):
+            getattr(b, f.name).copy_(getattr(a, f.name).cpu())
+    dst.host = src.host
+    return cpu
+
+
+def stereo_bound(H: int, W: int, D: int, block: int) -> tuple:
+    """(bound ms, by) of stereo_depth at H x W: the two grey images read
+    once and the depth and validity written once, or the volume's float32
+    operations (a pixel a disparity: the difference, its magnitude and two
+    box sums of block - 1 adds each, the argmins' comparisons of the left
+    and the right views, the mean's add) at 67 TFLOP/s."""
+    nbytes = 2 * H * W * 4 + H * W * (4 + 1)
+    ops = H * W * D * (2 + 2 * (block - 1) + 2 + 1)
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / 67e12 * 1e3, "operations"))
+
+
+def stereo_phase(dev, root: Path, n: int) -> dict:
+    """Phase 16's stereo input and mesh output on n frames: synthetic
+    --stereo, the front end on the card against the CPU, run --stereo-dir
+    --evaluate --save-mesh with make_pipe (L4 held to the JAX package's
+    when n is STEREO_FRAMES), the mesh against the CPU's."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.apps import cli
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.io.meshing import read_ply_mesh
+    from rgbdslam_v2_tpu_torch.io.stereo_input import StereoDataset
+    from rgbdslam_v2_tpu_torch.ops import stereo
+
+    out = {}
+    seq, res = root / "stereo", root / "stereo_out"
+    t0 = time.perf_counter()
+    code = cli.main(["synthetic", "--out", str(seq), "--frames", str(n), "--seed",
+                     str(STEREO_SEED), "--stereo", str(STEREO_BASELINE)])
+    out["synthetic_s"] = time.perf_counter() - t0
+    if code != 0:
+        fail(f"rgbdslam-torch synthetic --stereo exited {code}")
+    ds = StereoDataset.open(seq)
+    if len(ds) != n:
+        fail(f"synthetic --stereo wrote {len(ds)} pairs for {n} frames")
+    valid_eq, disp_eq = [], []
+    for k in STEREO_CHECK_FRAMES:
+        _ts, _rgb, gl, gr = ds.load(min(k, len(ds) - 1))
+        pair = torch.from_numpy(np.stack([gl, gr]))
+        cd, cv = stereo.disparity_block_matching(pair[0].to(dev), pair[1].to(dev))
+        hd, hv = stereo.disparity_block_matching(pair[0], pair[1])
+        valid_eq.append(float((cv.cpu() == hv).float().mean()))
+        disp_eq.append(float((cd.cpu() == hd).float().mean()))
+    out["valid_eq"], out["disp_eq"] = valid_eq, disp_eq
+    out["valid_share"] = float(hv.float().mean())
+    if min(valid_eq) < 0.999 or min(disp_eq) < 0.999:
+        fail(f"stereo disparity on the card against the CPU: valid equal on {valid_eq}, "
+             f"disparity equal on {disp_eq} of the pixels (at least 0.999)")
+    left, right = pair[0].to(dev), pair[1].to(dev)
+
+    def front():
+        return stereo.stereo_depth(left, right, TUM_DEFAULT.fx, STEREO_BASELINE)
+
+    out["front_ms"], out["front_event_ms"] = device_ms(front, n=10), median_ms(front, n=10)
+    out["front_ops"] = device_ops(front)
+    out["front_bound"] = stereo_bound(TUM_DEFAULT.height, TUM_DEFAULT.width, 64, 9)
+    del left, right, pair
+    phase16_reset()
+    t0 = time.perf_counter()
+    code, text, pipe = run_cli(["run", "--stereo-dir", seq, "--out", res, "--camera", "default",
+                                "--evaluate", "--save-mesh", "-p",
+                                f"stereo_baseline={STEREO_BASELINE}", *make_pipe_flags()])
+    out["cli_s"] = time.perf_counter() - t0
+    out["launches"] = phase16_launches()
+    if code != 0 or pipe is None:
+        fail(f"rgbdslam-torch run --stereo-dir exited {code}: {text[-2000:]}")
+    report = json.loads((res / "estimate_report.json").read_text())
+    out["ate"] = [report["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
+    out["stats"] = report["statistics"]
+    out["run_stereo_s"] = pipe.save_ms["run_stereo"] / 1e3
+    out["fps"] = n / out["run_stereo_s"]
+    replay = pipe.group_syncs["replay"]
+    out["replay_groups"], out["replay_syncs"] = len(replay), sum(len(x) for x, *_ in replay)
+    if out["launches"][0] != n or out["launches"][1] != n - 1:
+        fail(f"stereo entry: detect launched {out['launches'][0]}, refine "
+             f"{out['launches'][1]} times for {n} frames")
+    # a second RANSAC seed (OPTION_SEEDS' rule: one seed moves L4 up to 2x)
+    code, text2, pipe2 = run_cli(["run", "--stereo-dir", seq, "--out", root / "stereo_seed1",
+                                  "--camera", "default", "--evaluate", "-p",
+                                  f"stereo_baseline={STEREO_BASELINE}", *make_pipe_flags(),
+                                  "-p", f"tpu_seed={OPTION_SEEDS[1]}"])
+    if code != 0 or pipe2 is None:
+        fail(f"rgbdslam-torch run --stereo-dir, seed {OPTION_SEEDS[1]}, exited {code}: "
+             f"{text2[-2000:]}")
+    del pipe2
+    rep2 = json.loads((root / "stereo_seed1" / "estimate_report.json").read_text())
+    out["ate_seed1"] = [rep2["ate_rmse"].get(str(lvl), float("nan")) for lvl in range(5)]
+    shutil.rmtree(root / "stereo_seed1")
+    out["l4_mean"] = (out["ate"][4] + out["ate_seed1"][4]) / 2
+    out["limit"] = option_limit(STEREO_L4_JAX) if n == STEREO_FRAMES else float("inf")
+    if not all(np.isfinite(out["ate"] + out["ate_seed1"])) or out["l4_mean"] > out["limit"]:
+        fail(f"stereo entry ATE {out['ate']} and {out['ate_seed1']} (seeds {OPTION_SEEDS}): not "
+             f"finite or the mean L4 above {out['limit']:.4f} m")
+    # the mesh: parsed, and the CPU's from the same state
+    t0 = time.perf_counter()
+    verts, cols, faces = read_ply_mesh(res / "mesh.ply")
+    out["mesh_read_s"] = time.perf_counter() - t0
+    out["mesh_faces"], out["mesh_verts"] = len(faces), len(verts)
+    out["mesh_mib"] = (res / "mesh.ply").stat().st_size / 2**20
+    out["mesh_ms"] = pipe.save_ms["save_mesh"]
+    if f"saved mesh.ply ({len(faces)} triangles)" not in text or not len(faces):
+        fail(f"mesh.ply holds {len(faces)} faces; the CLI printed "
+             f"{[ln for ln in text.splitlines() if 'mesh' in ln]}")
+    cpu = cpu_copy(pipe)
+    cpu.save_mesh(res / "mesh_cpu.ply")
+    cv, cc, cf = read_ply_mesh(res / "mesh_cpu.ply")
+    out["mesh_vert_diff"] = float(np.abs(cv - verts).max()) if cv.shape == verts.shape \
+        else float("inf")
+    if not (np.array_equal(cf, faces) and np.array_equal(cc, cols)) \
+            or out["mesh_vert_diff"] > 1e-5:
+        fail(f"mesh on the card against the CPU: faces equal {np.array_equal(cf, faces)}, "
+             f"colours equal {np.array_equal(cc, cols)}, vertices within "
+             f"{out['mesh_vert_diff']:.2e} m (limit 1e-5)")
+    del cpu, pipe
+    shutil.rmtree(seq)
+    shutil.rmtree(res)
+    return out
+
+
+def phase16(poses, rgbs, depths, stamps, dev, root: Path) -> dict:
+    """Phase 16 (see the module docstring). Every check that fails calls
+    fail(); returns the numbers to print."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.config import ParameterServer
+    from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_ODOMETRY
+    from rgbdslam_v2_tpu_torch.graph.odometry import OdometryProvider
+
+    out = {"seconds": {}}
+    frames = len(rgbs)
+    t_part = [time.perf_counter()]
+
+    def mark(name):  # seconds each part took
+        now = time.perf_counter()
+        out["seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    # ---- retrieval on make_pipe ----------------------------------------
+    r = out["run"] = bench_config_run(poses, rgbs, depths, stamps, dev, keep=True, **RETRIEVAL)
+    pipe = r.pop("pipe")
+    mgr = pipe.manager
+    r["retrievals"], r["hits"] = mgr.retrievals, mgr.retrieval_hits
+    spans = loop_spans(mgr)
+    r["max_span"] = max(spans, default=0)
+    if r["detect_launches"] != frames or r["refine_launches"] != frames - 1:
+        fail(f"retrieval run: detect launched {r['detect_launches']}, refine "
+             f"{r['refine_launches']} times for {frames} frames")
+    if not r["replays"] or r["replay_syncs"] or r["replay_idle"]:
+        fail(f"retrieval run: {r['replays']} replays; in {r['replay_groups']} replayed groups "
+             f"{r['replay_syncs']} synchronizing calls ({sorted(set(r['replay_sites']))}) and "
+             f"{r['replay_idle']} waits that left the card idle")
+    if not r["retrievals"] or not r["poses_ok"] or not r["stats"]["loop_edges"]:
+        fail(f"retrieval run: {r['retrievals']} retrievals, statistics {r['stats']}")
+    if not all(np.isfinite(r["ate"])) or r["ate"][4] > ATE_L4_MAX:
+        fail(f"retrieval run ATE {r['ate']}: not finite or L4 above {ATE_L4_MAX} m")
+    mark("make_pipe run")
+    store, n = mgr.store, mgr.n_nodes
+    out["at_run"] = retrieval_numbers(store, n, [n - 1])
+    for N in RETRIEVAL_STORES:
+        big = filled_store(store, n, N)
+        out[f"at_{N}"] = retrieval_numbers(big, N, [N - 1], plain_rows=200)
+        del big
+    mark("retrieval calls")
+    # ---- landmark BA, empirical covariances, graph viz on its graph ---------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["ba"] = mgr.optimize_landmarks()
+    torch.cuda.synchronize()
+    out["ba_s"] = time.perf_counter() - t0
+    if not out["ba"]["landmarks"] or not out["ba"]["chi2_after"] < out["ba"]["chi2_before"]:
+        fail(f"landmark BA on the retrieval run's graph: {out['ba']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.set_empirical_covariances()
+    torch.cuda.synchronize()
+    out["cov_ms"] = 1e3 * (time.perf_counter() - t0)
+    act = mgr.graph.edge_active[: mgr.n_edges]
+    info = mgr.graph.edge_info[: mgr.n_edges][act]
+    out["cov_edges"] = int(act.sum())
+    diag = torch.diagonal(info, dim1=-2, dim2=-1)
+    if not bool(torch.isfinite(info).all()) or not bool((diag > 0).all()):
+        fail("empirical covariances: information not finite or a diagonal not positive")
+    with tempfile.TemporaryDirectory() as td:
+        out["viz_edges"] = pipe.save_graph_viz(Path(td) / "graph.ply")
+    if out["viz_edges"] != r["final_stats"]["active_edges"]:
+        fail(f"save_graph_viz wrote {out['viz_edges']} edges for "
+             f"{r['final_stats']['active_edges']} active ones")
+    mark("BA, covariances, viz")
+    del pipe, mgr, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- replay = eager with retrieval hits taken; fps in clean processes
+    f = min(EQUAL_FRAMES, frames)
+    eq = out["equal"] = retrieval_replay_vs_eager(poses[:f], rgbs[:f], depths[:f], stamps[:f],
+                                                  dev)
+    if eq["diff"] != 0.0 or not eq["stats_equal"] or not eq["replays"] or not eq["hits"][0] \
+            or eq["hits"][0] != eq["hits"][1]:
+        fail(f"retrieval replay against eager: {eq}")
+    mark("replay = eager")
+    out["fps"] = clean_process_fps(poses, rgbs, depths, stamps, root)
+    mark("clean-process fps")
+    # ---- the default path with retrieval ----------------------------------
+    h = min(HOST_FRAMES, frames)
+    phase16_reset()
+    hr = out["host"] = host_path_run(poses[:h], rgbs[:h], depths[:h], stamps[:h], dev,
+                                     ParameterServer(dict(RETRIEVAL)))
+    hr["launches"] = phase16_launches()
+    del hr["pipe"]
+    for i, (sites, n_ret) in enumerate(hr["frames"][1:], 1):
+        if (sites.count("manager.py") != 1 or sites.count("loop_closing.py") != n_ret
+                or not set(sites) <= {"manager.py", "loop_closing.py", "backend.py"}):
+            fail(f"default path with retrieval, frame {i}: synchronizing calls {sites} with "
+                 f"{n_ret} retrievals (expected one in manager.py and one a retrieval in "
+                 f"loop_closing.py)")
+    hr["limit"] = option_limit(HOST_RETRIEVAL_L4_JAX)
+    if not hr["poses_ok"] or not all(np.isfinite(hr["ate"])) or hr["ate"][4] > hr["limit"]:
+        fail(f"default path with retrieval: ATE {hr['ate']}, limit L4 <= {hr['limit']:.4f}")
+    if hr["launches"][0] != h or hr["launches"][1] != h - 1:
+        fail(f"default path with retrieval: launches {hr['launches']} for {h} frames")
+    mark("default path")
+    # ---- robot odometry on the default path, ground truth as odometry ------
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+
+    odo = out["odometry"] = {}
+    for name, over in (("only", dict(use_robot_odom_only=True)),
+                       ("visual", dict(use_robot_odom=True))):
+        phase16_reset()
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(over), device=dev)
+        pipe.manager.set_odometry_provider(OdometryProvider(stamps[:h], poses[:h]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_arrays(rgbs[:h], depths[:h], stamps[:h], gt_poses=poses[:h])
+        torch.cuda.synchronize()
+        m = pipe.manager
+        o = odo[name] = dict(fps=h / (time.perf_counter() - t0), launches=phase16_launches(),
+                             nodes=m.n_nodes,
+                             odometry_edges=m.host.edge_types.count(EDGE_ODOMETRY),
+                             edges=len(m.host.edge_types))
+        if name == "only":
+            o["err"] = float(np.abs(m.poses()[:, :3, 3] - poses[:h, :3, 3]).max())
+            if m.n_nodes != h or o["odometry_edges"] != h - 1 or o["edges"] != h - 1 \
+                    or o["err"] > 1e-3 or o["launches"][:2] != (h, 0):
+                fail(f"odometry only: {o}")
+        else:
+            with tempfile.TemporaryDirectory() as td:
+                rep = pipe.evaluation_protocol(td, gt_stamps=list(stamps[:h]),
+                                               gt_xyz=poses[:h, :3, 3])
+            o["ate"] = [rep.ate_rmse.get(lvl, float("nan")) for lvl in range(5)]
+            if o["odometry_edges"] != m.n_nodes - 1 or o["edges"] <= o["odometry_edges"] \
+                    or not all(np.isfinite(o["ate"])) or o["ate"][4] > DEFAULT_ATE_L4_MAX \
+                    or o["launches"][:2] != (h, h - 1):
+                fail(f"visual + odometry: {o}")
+        del pipe, m
+    mark("odometry")
+    # ---- the stereo input and the mesh output ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["stereo"] = stereo_phase(dev, root, min(STEREO_FRAMES, frames))
+    mark("stereo and mesh")
+    return out
+
+
+def report_phase16(p: dict, frames: int) -> None:
+    """Phase 16's lines."""
+    r, st = p["run"], p["run"]["stats"]
+    phase(f"[16 retrieval] {r['fps']:.2f} fps over {frames - WARMUP} frames; nodes "
+          f"{st['nodes']}, edges {st['edges']} ({st['active_edges']} active, "
+          f"{st['sequential_edges']} sequential, {st['loop_edges']} loop, longest loop span "
+          f"{r['max_span']} frames); retrievals {r['retrievals']} "
+          f"({r['retrievals'] / frames:.3f} a frame), hits taken {r['hits']}; detect launches "
+          f"{r['detect_launches']}, refine {r['refine_launches']}, Kabsch "
+          f"{r['kabsch_launches']}; replays {r['replays']}; synchronizing calls in "
+          f"{r['replay_groups']} replayed groups {r['replay_syncs']}, waits for a copy not "
+          f"landed {r['replay_waits']} ({r['copy_waits']} in all), of which left the card idle "
+          f"{r['replay_idle']}; peak device memory {r['peak_gib']:.2f} GiB; ATE L0..L4 "
+          f"{' / '.join(f'{a:.4f}' for a in r['ate'])} m (limit L4 <= {ATE_L4_MAX})")
+    for key in ("at_run", *(f"at_{N}" for N in RETRIEVAL_STORES)):
+        q = p[key]
+        phase(f"[16 retrieval] one retrieval at {q['n_nodes']} of {q['capacity']} nodes "
+              f"({'the run' if key == 'at_run' else 'a filled store'}): chunked counts = "
+              f"plain ({q['nonzero']} nodes with votes); device {fmt_ms(q['ms'])} (profiler, "
+              f"mean of 3), event span {q['event_ms']:.4f} ms; peak added "
+              f"{q['peak_mib']:.1f} MiB; bound {q['bound_ms']:.4f} ms ({q['bound_by']}: "
+              f"{q['gflop']:.1f} GFLOP float32); share of bound "
+              f"{'not measured' if q['ms'] is None else f'{100 * q['bound_ms'] / q['ms']:.1f}%'}")
+    eq = p["equal"]
+    phase(f"[16 retrieval] {eq['frames']} frames, 4 a step with room for hits "
+          f"({RETRIEVAL_EQUAL}): replayed ({eq['replays']} replays) against eager groups: max "
+          f"pose difference {eq['diff']:.3e}, statistics equal {eq['stats_equal']}, "
+          f"retrievals {eq['retrievals']}, hits taken {eq['hits']}, loop edges "
+          f"{eq['loop_edges']}")
+    f = p["fps"]
+    phase(f"[16 retrieval] fps in clean processes (tools/make_pipe_fps.py), {f['frames']} frames, "
+          f"alternating plain / retrieval / retrieval / plain: plain "
+          f"{' / '.join(f'{x['fps']:.2f}' for x in f['plain'])}, global_loop_candidates=2 "
+          f"{' / '.join(f'{x['fps']:.2f}' for x in f['retrieval'])} (retrievals "
+          f"{[x['retrievals'] for x in f['retrieval']]}, hits "
+          f"{[x['retrieval_hits'] for x in f['retrieval']]})")
+    ba = p["ba"]
+    phase(f"[16 ba] landmark BA on the retrieval run's graph: {ba['landmarks']} landmarks, "
+          f"{ba['observations']} observations, chi2 {ba['chi2_before']:.1f} -> "
+          f"{ba['chi2_after']:.1f}, {p['ba_s']:.2f} s wall; empirical covariances of "
+          f"{p['cov_edges']} active edges {p['cov_ms']:.1f} ms (finite, positive diagonals); "
+          f"save_graph_viz {p['viz_edges']} edges")
+    h = p["host"]
+    n_ret = [k for _, k in h["frames"][1:]]
+    phase(f"[16 host] default_params() + global_loop_candidates=2, {len(h['frames'])} frames: "
+          f"{len(h['frames']) / h['wall']:.2f} fps; synchronizing calls a frame (outside the "
+          f"online optimize) {sum(len(s) for s, _ in h['frames'][1:]) / (len(n_ret) or 1):.3f}, "
+          f"frames that retrieved {sum(1 for k in n_ret if k)} of {len(n_ret)} (2 syncs each, "
+          f"the others 1); nodes {h['stats']['nodes']}, loop edges {h['stats']['loop_edges']}; "
+          f"launches {h['launches'][:2]}; ATE L0..L4 "
+          f"{' / '.join(f'{a:.4f}' for a in h['ate'])} m (limit L4 <= {h['limit']:.4f})")
+    for name, o in p["odometry"].items():
+        extra = (f"positions within {o['err']:.2e} m of ground truth" if name == "only" else
+                 f"ATE L0..L4 {' / '.join(f'{a:.4f}' for a in o['ate'])} m (limit L4 <= "
+                 f"{DEFAULT_ATE_L4_MAX:.4f})")
+        phase(f"[16 odometry] default_params() + "
+              f"{'use_robot_odom_only' if name == 'only' else 'use_robot_odom'}, ground truth "
+              f"as odometry, {o['nodes']} nodes: {o['fps']:.2f} fps; edges {o['edges']}, of "
+              f"them odometry {o['odometry_edges']}; launches {o['launches'][:2]}; {extra}")
+    s = p["stereo"]
+    b, by = s["front_bound"]
+    phase(f"[16 stereo] synthetic --stereo {STEREO_BASELINE} ({s['synthetic_s']:.1f} s); "
+          f"disparity on the card against the CPU on pairs {list(STEREO_CHECK_FRAMES)}: valid "
+          f"equal on {s['valid_eq']}, disparity equal on {s['disp_eq']} of the pixels "
+          f"({100 * s['valid_share']:.1f}% valid); front end a 640x480 frame: device "
+          f"{fmt_ms(s['front_ms'])} (profiler, mean of 10), event span "
+          f"{s['front_event_ms']:.4f} ms, {s['front_ops']} device activities; bound "
+          f"{b:.4f} ms ({by})")
+    phase(f"[16 stereo] rgbdslam-torch run --stereo-dir --evaluate --save-mesh, make_pipe: "
+          f"ATE L0..L4 {' / '.join(f'{a:.4f}' for a in s['ate'])} m, with RANSAC seed "
+          f"{OPTION_SEEDS[1]} {' / '.join(f'{a:.4f}' for a in s['ate_seed1'])} m (the mean L4 "
+          f"{s['l4_mean']:.4f}, limit {s['limit']:.4f}); nodes {s['stats']['nodes']}, active "
+          f"edges "
+          f"{s['stats']['active_edges']}; run_stereo {s['fps']:.2f} fps "
+          f"({s['run_stereo_s']:.1f} s); detect launches {s['launches'][0]}, refine "
+          f"{s['launches'][1]}; synchronizing calls in {s['replay_groups']} replayed groups "
+          f"{s['replay_syncs']}; whole command {s['cli_s']:.1f} s")
+    phase("[16 seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in p["seconds"].items()))
+    phase(f"[16 mesh] mesh.ply {s['mesh_faces']} faces, {s['mesh_verts']} vertices, "
+          f"{s['mesh_mib']:.1f} MiB, save_mesh {s['mesh_ms']:.0f} ms, read back "
+          f"{s['mesh_read_s']:.2f} s; the CPU's mesh of the same state: faces and colours "
+          f"equal, vertices within {s['mesh_vert_diff']:.2e} m")
 
 
 def main() -> None:
@@ -2809,6 +3424,25 @@ def main() -> None:
           f"{f22['replay_syncs']}, idle waits {f22['replay_idle']}")
     launches_phase.update(bag=bp["launches"], pcd=bp["pcd_launches"],
                           batch_eval=bp["batch_launches"], frames_per_step_3=bp["f22_launches"])
+
+    # ---- 16. retrieval, odometry, landmark BA, covariances, stereo, mesh --
+    del bp
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"[16 retrieval] make_pipe with global_loop_candidates=2 on the bench orbit, as "
+          f"phase 6 drives it; the default path with retrieval and with ground-truth "
+          f"odometry; landmark BA and empirical covariances; the stereo input and the mesh")
+    work16 = tempfile.TemporaryDirectory()
+    p16 = phase16(poses, rgbs, depths, stamps, dev, Path(work16.name))
+    work16.cleanup()
+    report_phase16(p16, args.frames)
+    r16 = p16["run"]
+    launches_phase.update(
+        retrieval=(r16["detect_launches"], r16["refine_launches"], r16["kabsch_launches"]),
+        default_retrieval=p16["host"]["launches"],
+        odometry_only=p16["odometry"]["only"]["launches"],
+        odometry_visual=p16["odometry"]["visual"]["launches"],
+        stereo=p16["stereo"]["launches"])
 
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s; {phase_seconds()}")
     (dk, ek), (dp, ep) = times["frame"], times["frame_plain"]

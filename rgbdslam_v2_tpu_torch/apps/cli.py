@@ -5,12 +5,14 @@ Port of ``rgbdslam_v2_tpu/apps/cli.py`` (``run``, ``synthetic``, ``ate``,
 batch evaluation, openni_listener.cpp:431):
 
   run        process a TUM directory, a ROS bag (RGB-D images, or a
-             PointCloud2 topic with -p topic_points) or a directory of
-             PCD/PLY clouds: trajectory, statistics or the 5-level
-             evaluation protocol, and the clouds, octomap, g2o graph,
+             PointCloud2 topic with -p topic_points), a directory of
+             PCD/PLY clouds or a rectified stereo directory: trajectory,
+             statistics or the 5-level evaluation protocol, landmark
+             bundle adjustment, and the clouds, octomap, mesh, g2o graph,
              features and a result bag on request
   synthetic  write a synthetic RGB-D TUM directory with exact ground truth
-             (rendered by the port's renderer)
+             (rendered by the port's renderer), and with --stereo its
+             rectified stereo pairs
   ate, rpe   a trajectory file against ground truth
   params     every parameter with its default and doc
 
@@ -27,10 +29,7 @@ import sys
 from pathlib import Path
 
 # option -> the ROADMAP Queue 1 item that ports it
-_UNPORTED_RUN = {
-    "stereo_dir": ("--stereo-dir", "26b"), "save_mesh": ("--save-mesh", "26b"),
-    "landmark_ba": ("--landmark-ba", "25"), "serve": ("--serve", "27b"),
-}
+_UNPORTED_RUN = {"serve": ("--serve", "27b")}
 
 
 def _unported(option: str, item: str) -> int:
@@ -66,9 +65,9 @@ def cmd_run(args) -> int:
             return _unported(option, item)
     params = ParameterServer.from_cli(args.param or [])
     bagfile = args.bagfile or params["bagfile_name"]
-    if not (args.tum_dir or args.pcd_dir or bagfile):
-        print("rgbdslam-torch: error: one of --tum-dir, --pcd-dir or --bagfile is required",
-              file=sys.stderr)
+    if not (args.tum_dir or args.pcd_dir or args.stereo_dir or bagfile):
+        print("rgbdslam-torch: error: one of --tum-dir, --pcd-dir, --stereo-dir or --bagfile "
+              "is required", file=sys.stderr)
         return 2
     cam = _cam_from_args(args, params)
     pipe = SlamPipeline(cam, params, device=args.device)
@@ -86,6 +85,16 @@ def cmd_run(args) -> int:
         from ..io.cloud_input import CloudDataset
 
         pipe.run_clouds(CloudDataset.open(args.pcd_dir, cam), max_frames=args.max_frames)
+    elif args.stereo_dir:
+        # rectified stereo pairs (stereoCallback, openni_listener.cpp:559-598)
+        from ..io.stereo_input import StereoDataset
+        from ..io.tum import read_trajectory_file
+
+        pipe.run_stereo(StereoDataset.open(args.stereo_dir), max_frames=args.max_frames)
+        gt_file = Path(args.stereo_dir) / "groundtruth.txt"
+        if gt_file.exists():
+            gt = read_trajectory_file(gt_file)
+            gt_stamps, gt_xyz = gt[:, 0].tolist(), gt[:, 1:4]
     elif params["topic_points"]:
         # a PointCloud2 topic in the bag (pcdCallback via topic_points)
         from ..io.rosbag import read_cloud_frames
@@ -112,11 +121,17 @@ def cmd_run(args) -> int:
         stamps, poses = pipe.manager.trajectory()
         write_trajectory(out / "estimate.txt", stamps, poses)
         print(json.dumps(pipe.manager.statistics(), indent=2))
+    if args.landmark_ba:
+        print(f"landmark BA: {json.dumps(pipe.manager.optimize_landmarks())}")
+        stamps, poses = pipe.manager.trajectory()
+        write_trajectory(out / "estimate_landmark_ba.txt", stamps, poses)
     if args.save_clouds:
         print(f"saved cloud.pcd ({pipe.save_clouds(out / 'cloud.pcd')} points)")
     if args.save_octomap:
         pipe.save_octomap(out / "map.ot")
         print("saved map.ot")
+    if args.save_mesh:
+        print(f"saved mesh.ply ({pipe.save_mesh(out / 'mesh.ply')} triangles)")
     if args.save_g2o:
         pipe.save_g2o(out / "graph.g2o")
         print("saved graph.g2o")
@@ -135,15 +150,23 @@ def cmd_synthetic(args) -> int:
     from ..core.camera import TUM_DEFAULT, Intrinsics
     from ..io.synthetic import SyntheticWorld, render_sequence, save_as_tum_dataset
 
-    if args.stereo > 0:
-        return _unported("synthetic --stereo", "26b")
     cam = (Intrinsics(fx=130.0, fy=130.0, cx=80.0, cy=60.0, width=160, height=120)
            if args.small else TUM_DEFAULT)
     world = SyntheticWorld.create(seed=args.seed, cam=cam)
     poses, rgbs, depths = render_sequence(world, args.frames, seed=args.seed + 1,
                                           depth_noise_sigma=args.depth_noise,
                                           device=args.device)
-    save_as_tum_dataset(args.out, poses, rgbs, depths)
+    stamps = save_as_tum_dataset(args.out, poses, rgbs, depths)
+    if args.stereo > 0:
+        from ..io.stereo_input import render_stereo_sequence, save_as_stereo_dataset
+
+        sposes, lefts, rights, _ = render_stereo_sequence(world, args.frames, args.stereo,
+                                                          seed=args.seed + 1, device=args.device)
+        # the TUM files' stamps: groundtruth.txt, which both share, then
+        # holds the stamps of both (the JAX CLI writes the pairs at k / 30 s
+        # over the TUM ground truth; ROADMAP F23)
+        save_as_stereo_dataset(args.out, sposes, lefts, rights, stamps=stamps)
+        print(f"wrote stereo pairs (baseline {args.stereo} m) to {args.out}")
     print(f"wrote {args.frames} frames to {args.out}")
     return 0
 
@@ -198,6 +221,9 @@ def build_parser() -> argparse.ArgumentParser:
                       help="ROS bag input (or -p bagfile_name); -p topic_points reads a "
                            "PointCloud2 topic instead of the image topics")
     runp.add_argument("--pcd-dir", default=None, help="directory of .pcd/.ply clouds")
+    runp.add_argument("--stereo-dir", default=None,
+                      help="directory with left/ and right/ rectified image pairs; block-matching "
+                           "depth on the device (-p stereo_baseline=... metres)")
     runp.add_argument("--out", required=True)
     runp.add_argument("--camera", default="default", help="fr1|fr2|default or fx,fy,cx,cy,w,h")
     runp.add_argument("--max-frames", type=int, default=None)
@@ -206,18 +232,20 @@ def build_parser() -> argparse.ArgumentParser:
                       help="run the 5-level evaluation protocol")
     runp.add_argument("--save-clouds", action="store_true")
     runp.add_argument("--save-octomap", action="store_true")
+    runp.add_argument("--save-mesh", action="store_true",
+                      help="triangle-mesh the node grids (depth-jump test) into mesh.ply")
     runp.add_argument("--save-g2o", action="store_true")
     runp.add_argument("--save-features", action="store_true")
     runp.add_argument("--save-individual", action="store_true",
                       help="one cloud file per node (saveIndividualClouds)")
     runp.add_argument("--save-bag", action="store_true",
                       help="the trajectory as /tf in result.bag (saveBagfile)")
+    runp.add_argument("--landmark-ba", action="store_true",
+                      help="refine with landmark bundle adjustment into "
+                           "estimate_landmark_ba.txt (DO_FEATURE_OPTIMIZATION)")
     runp.add_argument("--device", default=None,
                       help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
-    # inputs and outputs of the JAX CLI that the port does not have yet
-    runp.add_argument("--stereo-dir", default=None, help=argparse.SUPPRESS)
-    for option in ("--save-mesh", "--landmark-ba"):
-        runp.add_argument(option, action="store_true", help=argparse.SUPPRESS)
+    # the JAX CLI's live viewer, not in the port yet
     runp.add_argument("--serve", type=int, default=None, help=argparse.SUPPRESS)
     runp.set_defaults(fn=cmd_run)
 
@@ -229,7 +257,9 @@ def build_parser() -> argparse.ArgumentParser:
     synp.add_argument("--small", action="store_true", help="160x120 frames")
     synp.add_argument("--device", default=None,
                       help="render device (default: the CUDA card; 'cpu' to render on the CPU)")
-    synp.add_argument("--stereo", type=float, default=0.0, help=argparse.SUPPRESS)
+    synp.add_argument("--stereo", type=float, default=0.0, metavar="BASELINE",
+                      help="also write rectified stereo pairs (left/ and right/) with this "
+                           "baseline in metres")
     synp.set_defaults(fn=cmd_synthetic)
 
     for name, fn, doc in (("ate", cmd_ate, "evaluate a trajectory against ground truth"),

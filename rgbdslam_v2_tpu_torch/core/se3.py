@@ -1,7 +1,7 @@
 """SE(3) / SO(3) geometry on torch tensors: batched, closed form.
 
 Port of ``rgbdslam_v2_tpu/core/se3.py`` (hat, exp/log maps, quaternion
-conversions, inv/apply). Poses are homogeneous (..., 4, 4) float32 matrices;
+conversions, inv/relative/apply, rotation_angle, translation_norm). Poses are homogeneous (..., 4, 4) float32 matrices;
 twists are ``xi = [v, w]`` (translation first).
 """
 from __future__ import annotations
@@ -129,6 +129,21 @@ def inv(T: torch.Tensor) -> torch.Tensor:
     R, t = to_rt(T)
     Rt = R.transpose(-1, -2)
     return from_rt(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def relative(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^{-1} B: the motion taking frame A to frame B."""
+    return inv(A) @ B
+
+
+def rotation_angle(T: torch.Tensor) -> torch.Tensor:
+    """Rotation magnitude (radians) of (..., 4, 4) or (..., 3, 3)."""
+    tr = T[..., 0, 0] + T[..., 1, 1] + T[..., 2, 2]
+    return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
+def translation_norm(T: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.norm(T[..., :3, 3], dim=-1)
 
 
 def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,8 @@ the redundancy drop, edge building, keyframes, the ``clear_non_keyframes``
 queue, ``delete_last_frame``'s bookkeeping, the subgraph selection of
 ``_optimize_inaffected``, and the edge bookkeeping of the ICP rescues
 (the fallback edges a drain hands to ``_dispatch_retro_rescue``,
-``_consume_rescues``' retyping, the ICP edges of ``add_frame``). The
+``_consume_rescues``' retyping, the ICP edges of ``add_frame``) and the
+place of the appearance retrieval's hits among the candidates. The
 decisions are functions on numpy arrays, so a test can feed them fixed
 comparison results. ``graph/manager.py`` holds the device half.
 """
@@ -24,7 +25,8 @@ import numpy as np
 
 EDGE_SEQUENTIAL = 0
 EDGE_LOOP = 1
-EDGE_CONST_POSITION = 3  # the reference's numbering (2 = odometry)
+EDGE_ODOMETRY = 2
+EDGE_CONST_POSITION = 3
 
 
 @dataclasses.dataclass
@@ -229,9 +231,12 @@ class HostGraph:
         self.clear_queue: List[int] = []  # clear_non_keyframes batching
 
     # ------------------------------------------------------------------
-    def select_candidates(self, new_id: int, B: int) -> List[int]:
+    def select_candidates(self, new_id: int, B: int, appearance=None) -> List[int]:
         """Sequential predecessors + geodesic BFS neighbours (1/depth
-        weighted) + random keyframes."""
+        weighted) + appearance hits + random keyframes. appearance(out), when
+        given, returns the global retrieval's hits for the candidates so far
+        (global_loop_candidates; it is asked only while out holds fewer
+        than B)."""
         p = self.params
         out = list(range(new_id - 1, max(-1, new_id - 1 - p["predecessor_candidates"]), -1))
         if new_id >= 1 and len(out) < B:
@@ -254,6 +259,8 @@ class HostGraph:
                 if n_geo > 0:
                     sel = self.rng.choice(len(cand), size=n_geo, replace=False, p=w)
                     out.extend(cand[i] for i in sel)
+        if appearance is not None and len(out) < B:
+            out.extend(h for h in appearance(out) if h not in out)
         kf_pool = [k for k in self.keyframes if k not in out and k != new_id]
         n_rand = min(len(kf_pool), B - len(out), max(p["min_sampled_candidates"], 0))
         if n_rand > 0:
@@ -261,10 +268,10 @@ class HostGraph:
             out.extend(kf_pool[i] for i in sel)
         return out[:B]
 
-    def frame_slots(self, new_id: int, timestamp: float, B: int):
+    def frame_slots(self, new_id: int, timestamp: float, B: int, appearance=None):
         """Candidates padded to B (duplicates flagged) and their dt;
         slot 0 holds the predecessor."""
-        cand_ids = self.select_candidates(new_id, B)
+        cand_ids = self.select_candidates(new_id, B, appearance)
         padded = (cand_ids + [cand_ids[0]] * B)[:B]
         dup = ([False] * len(cand_ids) + [True] * (B - len(cand_ids)))[:B]
         dts = [max(abs(timestamp - self.timestamps[c]), 1e-3) for c in padded]

@@ -11,7 +11,12 @@ the groups), ``_drain_pending`` (blocking or pipelined),
 ``_adapt_detector``, ``_apply_fixation``, the ICP rescues of ``use_icp``
 (``_icp_rescue_batch``, ``_dispatch_retro_rescue``, ``_consume_rescues``;
 the device work is in ``graph/rescue.py``),
-``_inaffected_kernel``, ``_optimize_inaffected``, ``optimize``,
+``_inaffected_kernel``, ``_optimize_inaffected``, ``optimize``, robot
+odometry (``set_odometry_provider``, the odometry-only branch, odometry
+edges beside visual ones; ``graph/odometry.py``), the appearance retrieval
+of ``global_loop_candidates`` (``graph/loop_closing.py``),
+``optimize_landmarks`` (``optim/landmark_ba.py``),
+``set_empirical_covariances`` (``optim/covariance.py``),
 ``prune_edges_above``, ``toggle_mapping``, ``delete_last_frame``,
 ``clear_feature_information``, ``reset``, ``poses``, ``trajectory``,
 ``statistics``, ``extract``, ``add_node``, ``sanity_check``,
@@ -43,7 +48,17 @@ Two per-frame paths, chosen as in the JAX package:
   always passed by then. The lag is fixed: the JAX package reads a staged
   copy as soon as it reports landed, and on the card that made which
   summaries a frame's candidate selection sees, and so the trajectory,
-  depend on how far the host ran ahead (ROADMAP F11). With ``use_icp`` a
+  depend on how far the host ran ahead (ROADMAP F11). With
+  ``global_loop_candidates`` the step call of a group is followed, while
+  no retrieval is in flight and the newest id is at least 8, by an eager
+  retrieval of the newest node against the store
+  (``loop_closing.global_match_scores_from_store``) and the start of its
+  counts' copy; the counts are read at the candidate selection one step
+  call after the one that follows their dispatch (at once on the CPU),
+  waiting there for their event (counted as a drain's wait is), and the
+  first frame whose selection has room takes their hits. The JAX package
+  reads them as soon as its copy reports ready, which makes the candidates
+  depend on timing, as its drains do. With ``use_icp`` a
   drain that finds constant-position fallback edges queues their
   retroactive GICP rescue on the card, behind the steps already queued;
   its verdicts come back in an asynchronous copy read at the next drain,
@@ -56,6 +71,10 @@ Two per-frame paths, chosen as in the JAX package:
   select candidates on the host, compare on the device, pull the result
   and the keypoint count in ONE device->host copy, decide on the host
   (motion gates, redundancy, keyframes), commit in place, optimize online.
+  With ``global_loop_candidates`` a frame whose candidates leave room
+  retrieves on the device first and reads the hits in a second copy; with
+  ``use_robot_odom`` an odometry edge joins the visual ones, and
+  ``use_robot_odom_only`` commits the odometry motion without comparing.
   With ``use_icp``, a frame with visually failed candidates rescues them
   in one batched ICP call and pulls its result in one more copy.
 
@@ -87,15 +106,18 @@ from ..optim.pose_graph import (GraphState, edge_chi2, make_graph_state, optimiz
                                  resolve_solver)
 from ..ops import dct_wire
 from ..ops.emm import emm_pool_maps
+from ..ops.matching import match_descriptors
 from ..ops.sift import DESC_DIM
 from .compare import CompareResult, CompareSummary, compare_to_candidates
 from .device_step import StepGraph, StepSummary, commit_node, group_views, pack_group, slam_stepN
-from .host_graph import (EDGE_CONST_POSITION, HostGraph, MatchDecision, build_edges,
-                         const_position_edge, decide_matches, inaffected_subgraph,
-                         is_redundant)
+from .host_graph import (EDGE_CONST_POSITION, EDGE_LOOP, EDGE_ODOMETRY, EDGE_SEQUENTIAL,
+                         HostGraph, MatchDecision, build_edges, const_position_edge,
+                         decide_matches, inaffected_subgraph, is_redundant)
 from .ingest import (compact_frame, delta_encode, host_unpack_codes, maybe_scale_depth,
                      prepare_and_extract, wire_delta_len, wire_intra_len)
+from .loop_closing import global_match_scores_from_store, ranked_hits, retrieve_loop_candidates
 from .node_store import NodeStore
+from .odometry import odometry_information
 from .rescue import icp_rescue_body, retro_rescue
 
 logger = logging.getLogger("rgbdslam.graph")
@@ -104,10 +126,14 @@ logger = logging.getLogger("rgbdslam.graph")
 def fast_path(p: ParameterServer) -> bool:
     """Whether keep_all_nodes selects the device-decided fast path for the
     frames after the first (with mapping on): no motion gate may need a
-    host decision."""
-    return (p["keep_all_nodes"] and p["min_translation_meter"] <= 0
-            and p["min_rotation_degree"] <= 0)
+    host decision, and odometry edges are added on the host path."""
+    return (p["keep_all_nodes"] and not p["use_robot_odom"] and not p["use_robot_odom_only"]
+            and p["min_translation_meter"] <= 0 and p["min_rotation_degree"] <= 0)
 
+
+# optimize_landmarks' re-match: the float32 distance matrices of a chunk of
+# node pairs
+PAIR_CHUNK_BYTES = 256 << 20
 
 # tpu_descriptor_dtype -> the store's dtype for the binary families
 DESC_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16, "float32": torch.float32}
@@ -152,8 +178,6 @@ def check_slice(p: ParameterServer) -> None:
         "tpu_approx_select": p["tpu_approx_select"],
         "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] not in DESC_DTYPES,
         "tpu_mesh_devices": p["tpu_mesh_devices"] > 1,
-        "global_loop_candidates": p["global_loop_candidates"] > 0,
-        "use_robot_odom": p["use_robot_odom"] or p["use_robot_odom_only"],
         "start_paused": p["start_paused"],
     }
     bad = [k for k, v in refused.items() if v]
@@ -292,8 +316,19 @@ class GraphManager:
                 torch.zeros((cam.height, cam.width), dtype=torch.uint8, device=self.device),
                 torch.zeros((cam.height // s, cam.width // s), dtype=torch.int32,
                             device=self.device))
+        self.odometry = None  # OdometryProvider (use_robot_odom*)
+        # the keep-all path's retrieval in flight: (host counts, event, step
+        # calls queued at its dispatch), or None; retrievals run
+        # and the hits they added to candidates, on either path
+        self._retrieval = None
+        self.retrievals = 0
+        self.retrieval_hits = 0
         self.step_graph = (StepGraph(self.store, self.graph, self.generator, self.wire_state)
                            if self.device.type == "cuda" else None)
+
+    def set_odometry_provider(self, provider) -> None:
+        """Attach an OdometryProvider (use_robot_odom, use_robot_odom_only)."""
+        self.odometry = provider
 
     # ---- host state, read through the bookkeeping object ----------------
     @property
@@ -359,13 +394,15 @@ class GraphManager:
             p["maximum_depth"], p["use_feature_min_depth"], packed, self.depth_bits, self.dct,
             self.gray_bits, self.ingest_fmt)
 
-    def encode(self, rgb, depth) -> np.ndarray:
+    def encode(self, rgb, depth, scale_depth: bool = True) -> np.ndarray:
         """The host wire of one frame (yc12, ydct or raw, as configured),
-        its depth scaled by depth_scaling_factor first. Under the delta wire
+        its depth scaled by depth_scaling_factor first (unless scale_depth
+        is False: the stereo input's computed metres). Under the delta wire
         it is the wire of the next frame to be dispatched: call it once a
         frame, in order, just before the frame's add_frame or
         add_frame_group (the host mirror advances with each call)."""
-        depth = maybe_scale_depth(depth, self.params["depth_scaling_factor"])
+        if scale_depth:
+            depth = maybe_scale_depth(depth, self.params["depth_scaling_factor"])
         if self.wire_delta and self.n_nodes > 0 and self.mapping_enabled and fast_path(
                 self.params):
             return self._wire_encode(rgb, depth)
@@ -459,7 +496,19 @@ class GraphManager:
         self._wire_synced = False  # frames off the fast path bypass the delta state
         B = self.cand_batch
         kp, depth_small, color_small = self._extract(packed)
-        cand_ids = self.host.select_candidates(new_id, B)
+        if p["use_robot_odom_only"]:
+            return self._add_odometry_only(kp, depth_small, color_small, timestamp, new_id)
+        n_global = p["global_loop_candidates"]
+        appearance = None
+        if n_global > 0 and new_id > 4:
+            def appearance(out):
+                self.retrievals += 1
+                hits = [h for h in retrieve_loop_candidates(
+                    kp, self.store, self.n_nodes, out + [new_id],
+                    top_n=min(n_global, B - len(out))) if h not in out]
+                self.retrieval_hits += len(hits)
+                return hits
+        cand_ids = self.host.select_candidates(new_id, B, appearance)
         padded = (cand_ids + [cand_ids[0]] * B)[:B]
         res = self._compare_dispatch(kp, depth_small,
                                      self._to_device(np.asarray(padded, np.int64)))
@@ -503,6 +552,11 @@ class GraphManager:
                     self.timestamps[0] = timestamp
                     self._kp_count0 = cmp.n_valid_kp
                 return False
+        if p["use_robot_odom"] and self.odometry is not None:
+            # an odometry edge beside the visual ones (graph_mgr_odom.cpp:62)
+            odo = self._odometry_edge(pred_id, new_id, timestamp, dt_pred)
+            if odo is not None:
+                edges.append(odo)
 
         self._commit(kp, depth_small, color_small, new_id, base_id, base_T_new, edges)
         self.n_icp_rescues += len(icp)
@@ -517,6 +571,32 @@ class GraphManager:
         if self.nodes_since_optimize >= p["optimizer_skip_step"]:
             self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
                           pcg_iters=24)
+        return True
+
+    def _odometry_edge(self, pred_id: int, new_id: int, timestamp: float, dt: float):
+        """(pred, new, odometry motion, information, EDGE_ODOMETRY), or None
+        where the provider has no pose at either stamp."""
+        delta = self.odometry.delta(self.timestamps[pred_id], timestamp)
+        if delta is None:
+            return None
+        info = odometry_information(dt, self.params["odometry_information_factor"])
+        return (pred_id, new_id, np.asarray(delta, np.float32), info, EDGE_ODOMETRY)
+
+    def _add_odometry_only(self, kp, depth_small, color_small, timestamp: float,
+                           new_id: int) -> bool:
+        """use_robot_odom_only (graph_mgr_odom): the node is posed by the
+        odometry motion from its predecessor and joined to it by one
+        odometry edge, without a comparison."""
+        if self.odometry is None:
+            raise RuntimeError("use_robot_odom_only without an odometry provider")
+        pred_id = new_id - 1
+        edge = self._odometry_edge(pred_id, new_id, timestamp,
+                                   max(timestamp - self.timestamps[pred_id], 1e-3))
+        if edge is None:
+            return False
+        self._commit(kp, depth_small, color_small, new_id, pred_id, edge[2], [edge])
+        self.host.n_nodes += 1
+        self.timestamps.append(timestamp)
         return True
 
     def _icp_rescue_batch(self, depth_small, failed_ids: List[int], padded: List[int],
@@ -634,7 +714,10 @@ class GraphManager:
         slots, added = [], 0
         try:  # append frames < k for frame k's selection, roll back after
             for k in range(n):
-                slots.append(h.frame_slots(ids[k], tss[k], B))
+                appearance = None
+                if p["global_loop_candidates"] > 0 and self._retrieval is not None:
+                    appearance = lambda out, new_id=ids[k]: self._retrieved_hits(out, new_id)
+                slots.append(h.frame_slots(ids[k], tss[k], B, appearance))
                 if k < n - 1:
                     h.timestamps.append(tss[k])
                     h.n_nodes += 1
@@ -651,7 +734,7 @@ class GraphManager:
         cuda = self.device.type == "cuda"
         host_flat = pack_group(wires, ids, [s[0] for s in slots], [s[1] for s in slots],
                                [s[2] for s in slots], e_starts, pin=cuda, intra=intra)
-        if cuda and n > 1:
+        if self.step_graph is not None and n > 1:
             sums = self.step_graph.run(host_flat, n, L, B, self._step_cfg())
         else:
             flat = host_flat.to(self.device, non_blocking=True)
@@ -672,6 +755,11 @@ class GraphManager:
             self._pending.append((ids[k], slots[k][0], e_starts[k], rows[k]))
             h.n_nodes += 1
             h.timestamps.append(tss[k])
+        if p["global_loop_candidates"] > 0 and ids[-1] >= 8 and self._retrieval is None:
+            # the deferred retrieval of the newest node, queued behind the step
+            counts = global_match_scores_from_store(self.store, ids[-1], self.n_nodes)
+            self._retrieval = (*self._start_copy(counts), self._step_calls)
+            self.retrievals += 1
         # evaluate every alert (the tracker is stateful) before combining
         if any([self._starvation_alert(c) for c in compacts]):
             # contrast collapsed: flush everything, this group included, so
@@ -686,6 +774,23 @@ class GraphManager:
         if self.nodes_since_optimize >= p["optimizer_skip_step"]:
             self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
                           pcg_iters=24)
+
+    def _retrieved_hits(self, out: List[int], new_id: int) -> List[int]:
+        """The retrieval's hits for a keep-all frame's selection, once its
+        counts may be read: one step call after the step call that follows
+        its dispatch, or at once where the copy has no event (CPU), as
+        _landed reads a staged drain; then the retrieval is consumed, and
+        the next step call dispatches another. Before that, none."""
+        host, event, staged_at = self._retrieval
+        if event is not None and staged_at >= self._step_calls:
+            return []
+        self._wait(event, lagged=True)
+        self._retrieval = None
+        p = self.params
+        hits = ranked_hits(host.numpy(), out, new_id, p["global_loop_candidates"],
+                           self.cand_batch, p["tpu_retrieval_min_matches"])
+        self.retrieval_hits += len(hits)
+        return hits
 
     def _delta_wires(self, compacts):
         """Delta-wire frames as the step takes them: every wire padded to
@@ -1042,6 +1147,141 @@ class GraphManager:
         self.graph.edge_active.copy_(self._to_device(active))
         return n_pruned
 
+    # ---- landmark BA and empirical covariances ----------------------------
+    def _rematch(self, pairs) -> tuple:
+        """Each (i, j) node pair's descriptors matched again (the port's
+        batched match_descriptors at m_cap 128 and nn_distance_ratio), in
+        chunks of pairs whose distance matrices fit PAIR_CHUNK_BYTES; host
+        (P, 128) arrays (src_idx, dst_idx, valid)."""
+        s = self.store
+        ii = torch.tensor([i for i, _ in pairs], dtype=torch.long, device=self.device)
+        jj = torch.tensor([j for _, j in pairs], dtype=torch.long, device=self.device)
+        chunk = max(1, PAIR_CHUNK_BYTES // (4 * self.k_cap * self.k_cap))
+        out = []
+        for c0 in range(0, len(pairs), chunk):
+            a, b = ii[c0:c0 + chunk], jj[c0:c0 + chunk]
+            m = match_descriptors(s.desc[a], s.kp_valid[a], s.desc[b], s.kp_valid[b], 128,
+                                  self.params["nn_distance_ratio"])
+            out.append(torch.stack([m.src_idx, m.dst_idx, m.valid.long()]))
+        host = torch.cat(out, dim=1).cpu().numpy()
+        return host[0], host[1], host[2].astype(bool)
+
+    @torch.inference_mode()
+    def optimize_landmarks(self, iterations: int = 8, min_obs: int = 2,
+                           max_landmarks: int = 8192, max_obs: int = 32768,
+                           merge_dist: float = 0.10) -> dict:
+        """Landmark bundle adjustment (the reference's DO_FEATURE_OPTIMIZATION:
+        features as landmarks observed by EdgeSE3PointXYZDepth edges;
+        src/landmark.cpp, graph_manager.cpp:137-143,188-200). Feature
+        tracks come from matching the descriptors of every active visual
+        edge's nodes again, joined into landmarks by union-find over (node,
+        keypoint) observations with a world-distance gate (host code, as in
+        the JAX package); then the poses and landmarks are refined by
+        alternating Gauss-Newton (optim/landmark_ba.py) and the poses are
+        written back to the graph. Returns landmarks, observations and the
+        chi2 before and after."""
+        from ..optim.landmark_ba import LandmarkGraph, chi2 as lm_chi2
+        from ..optim.landmark_ba import optimize_landmarks as opt_lm
+
+        self._drain_pending()
+        h = self.host
+        pairs = [h.edge_pairs[e] for e in range(self.n_edges)
+                 if h.edge_active[e] and h.edge_types[e] in (EDGE_SEQUENTIAL, EDGE_LOOP)]
+        if not pairs:
+            return {"landmarks": 0, "observations": 0}
+        src, dst, ok = self._rematch(pairs)
+        n = self.n_nodes
+        uv = self.store.uv[:n].cpu().numpy()
+        xyz = self.store.xyz[:n].cpu().numpy()
+        poses = self.poses()
+
+        parent = {}  # union-find over (node, keypoint) observation keys
+
+        def find(x):
+            root = x
+            while parent.get(root, root) != root:
+                root = parent[root]
+            while parent.get(x, x) != x:
+                parent[x], x = root, parent[x]
+            return root
+
+        def union(a, b):
+            ra, rb = find(a), find(b)
+            if ra != rb:
+                parent[rb] = ra
+
+        for p_idx, (i, j) in enumerate(pairs):
+            si, dj = src[p_idx], dst[p_idx]
+            # the world-consistency gate under the current pose estimates
+            wi = (poses[i, :3, :3] @ xyz[i, si].T).T + poses[i, :3, 3]
+            wj = (poses[j, :3, :3] @ xyz[j, dj].T).T + poses[j, :3, 3]
+            good = ok[p_idx] & (np.linalg.norm(wi - wj, axis=-1) < merge_dist)
+            for a, b in zip(si[good], dj[good]):
+                union((i, int(a)), (j, int(b)))
+
+        tracks = {}
+        for key in list(parent.keys()) + list(parent.values()):
+            tracks.setdefault(find(key), []).append(key)
+        tracks = {r: sorted(set(obs)) for r, obs in tracks.items()
+                  if len({nid for nid, _ in obs}) >= min_obs}
+        track_list = sorted(tracks.values(), key=len, reverse=True)[:max_landmarks]
+        obs_lm, obs_pose, obs_uvz, lm_init = [], [], [], []
+        for obs in track_list:
+            per_node = {}
+            for nid, k in obs:
+                per_node.setdefault(nid, k)  # one observation a node
+            if len(obs_lm) + len(per_node) > max_obs:
+                break
+            lid = len(lm_init)
+            pts = []
+            for nid, k in per_node.items():
+                obs_lm.append(lid)
+                obs_pose.append(nid)
+                obs_uvz.append([uv[nid, k, 0], uv[nid, k, 1], xyz[nid, k, 2]])
+                pts.append(poses[nid, :3, :3] @ xyz[nid, k] + poses[nid, :3, 3])
+            lm_init.append(np.mean(pts, axis=0))
+        if not lm_init:
+            return {"landmarks": 0, "observations": 0}
+        L, O = len(lm_init), len(obs_lm)
+        # capacities rounded up to powers of two, as the JAX package rounds
+        # them (its compiled shapes)
+        ncap = max(32, 1 << (n - 1).bit_length())
+        lcap = max(64, 1 << (L - 1).bit_length())
+        ocap = max(128, 1 << (O - 1).bit_length())
+
+        def dev(a, dtype=None):
+            return self._to_device(np.asarray(a, dtype))
+
+        g = LandmarkGraph(
+            poses=dev(np.concatenate([poses, np.broadcast_to(np.eye(4, dtype=np.float32),
+                                                             (ncap - n, 4, 4))])),
+            pose_fixed=dev([True] + [False] * (n - 1) + [True] * (ncap - n), bool),
+            landmarks=dev(np.concatenate([np.asarray(lm_init, np.float32),
+                                          np.zeros((lcap - L, 3), np.float32)])),
+            lm_active=dev([True] * L + [False] * (lcap - L), bool),
+            obs_lm=dev(obs_lm + [0] * (ocap - O), np.int64),
+            obs_pose=dev(obs_pose + [0] * (ocap - O), np.int64),
+            obs_uvz=dev(np.concatenate([np.asarray(obs_uvz, np.float32),
+                                        np.zeros((ocap - O, 3), np.float32)])),
+            obs_active=dev([True] * O + [False] * (ocap - O), bool))
+        sigma = self.params["sigma_depth"]
+        before = float(lm_chi2(g, self.cam, sigma))
+        g = opt_lm(g, self.cam, iterations=iterations, sigma_depth=sigma)
+        after = float(lm_chi2(g, self.cam, sigma))
+        self.graph.poses[:n] = g.poses[:n]
+        return {"landmarks": L, "observations": O, "chi2_before": before, "chi2_after": after}
+
+    @torch.inference_mode()
+    def set_empirical_covariances(self, bandwidth: float = 0.1) -> None:
+        """setEmpiricalCovariances (graph_manager2.cpp:111-144): the edges'
+        information re-derived from residual statistics
+        (optim/covariance.py); inactive slots keep theirs."""
+        from ..optim.covariance import empirical_information
+
+        self._drain_pending()
+        self.graph.edge_info.copy_(empirical_information(self.graph, bandwidth=bandwidth,
+                                                         n_edges=self.n_edges))
+
     # ------------------------------------------------------------------
     def poses(self) -> np.ndarray:
         """A host copy of the committed nodes' poses (never a view of the
@@ -1160,6 +1400,7 @@ class GraphManager:
 
         self._drain_pending()
         self._pending, self._staged, self._pending_rescues = [], [], []
+        self._retrieval = None
         with np.load(path, allow_pickle=False) as data:
             meta = json.loads(str(data["__meta__"]))
             if "store_0" in data.files:

@@ -52,17 +52,19 @@ def descriptor_distances(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Te
 def match_descriptors(desc_a: torch.Tensor, valid_a: torch.Tensor,
                       desc_b: torch.Tensor, valid_b: torch.Tensor,
                       max_matches: int, ratio: float = 0.95) -> Matches:
-    """Query set a (Ka, D) against B train sets b (B, Kb, D)."""
-    Ka = desc_a.shape[0]
+    """Query set a (Ka, D) against B train sets b (B, Kb, D); or B query
+    sets a (B, Ka, D), valid_a (B, Ka), each against its own train set."""
+    Ka = desc_a.shape[-2]
     B, Kb = desc_b.shape[:2]
     dev = desc_a.device
     max_matches = min(max_matches, Ka)
+    va = valid_a if valid_a.dim() == 2 else valid_a[None]  # (B or 1, Ka)
     dist = descriptor_distances(desc_a, desc_b)  # (B, Ka, Kb)
-    dist = torch.where(valid_a[None, :, None] & valid_b[:, None, :], dist, BIG)
+    dist = torch.where(va[:, :, None] & valid_b[:, None, :], dist, BIG)
     d1, nn = dist.min(dim=-1)  # first minimum, like argmin
     cols = torch.arange(Kb, device=dev)
     d2 = torch.where(cols[None, None, :] == nn[..., None], BIG, dist).min(dim=-1).values
-    ok = (d1 < ratio * d2) & (d1 < BIG * 0.5) & valid_a[None, :]
+    ok = (d1 < ratio * d2) & (d1 < BIG * 0.5) & va
     passing = torch.where(ok, d1, BIG)
     best_for_train = torch.full((B, Kb), BIG, device=dev).scatter_reduce(
         1, nn, passing, reduce="amin", include_self=True)

@@ -2,14 +2,15 @@
 
 Port of ``rgbdslam_v2_tpu/pipeline/slam.py``: ``SlamPipeline.process_frame``
 (without the paused and live-view state), ``run_arrays``, ``run_tum``,
-``run_bag`` and ``run_clouds`` (frames grouped ``tpu_frames_per_step`` a
-step on the keep-all fast path, host encodes run ahead on a worker thread
-with ``tpu_encode_ahead``; all share one loop over a frame source,
-``_run_frames``), ``save_bagfile``, the online octomap
+``run_bag``, ``run_clouds`` and ``run_stereo`` (frames grouped
+``tpu_frames_per_step`` a step on the keep-all fast path, host encodes run
+ahead on a worker thread with ``tpu_encode_ahead``; all share one loop over
+a frame source, ``_run_frames``), ``save_bagfile``, the online octomap
 (``octomap_online_creation``, ``octomap_autosave_step``), the writers
 ``save_clouds``, ``save_individual_clouds``, ``save_octomap``,
-``save_g2o`` and ``save_features`` over ``_node_world_cloud``, and
-``evaluation_protocol`` with ``EvaluationReport``. The per-frame work runs
+``save_g2o``, ``save_features`` and ``save_mesh`` over
+``_node_world_cloud``, ``save_graph_viz``, and ``evaluation_protocol``
+with ``EvaluationReport``. The per-frame work runs
 under ``torch.inference_mode``. With no ``device`` the pipeline runs on the
 CUDA card, or raises where there is none.
 
@@ -20,9 +21,18 @@ the host encoder what the JAX ``run_tum`` feeds its own: ``TumDataset.load``'s
 packages). Grouping changes no result: 4 frames a step, replayed, give the
 trajectory of 1 eager frame a step (``chip_smoke.py`` phase 7), where the
 JAX ``run_tum`` feeds one frame a ``process_frame`` call.
+
+``run_stereo`` computes each frame's depth from its rectified pair on the
+main thread (``ops/stereo.stereo_depth``; on the card on a stream of its
+own, so it does not wait behind the queued SLAM steps) and reads it back
+before the frame's host encode: one synchronization a frame, as the JAX
+``run_stereo``'s one depth read a frame. Its PNG pairs decode ahead on two
+host threads; its encodes run on the main thread (no encode-ahead, whose
+worker would issue device work beside the CUDA graph captures).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -228,6 +238,56 @@ class SlamPipeline:
         if stamps:
             self._run_frames(stamps, self._in_order(enc_at), None)
 
+    def run_stereo(self, source, max_frames: Optional[int] = None) -> None:
+        """The stereo input (the reference's stereoCallback,
+        openni_listener.cpp:559-598): ``source`` is an
+        io.stereo_input.StereoDataset (or has its ``pairs`` and ``load``).
+        Each kept pair's block-matching depth (stereo_baseline,
+        stereo_max_disparity, stereo_block_size) is computed on the
+        pipeline's device and read back, and the left RGB with that depth
+        takes the per-frame path of every input (skip_first_n_frames,
+        data_skip_step and max_frames honoured; the depth is not scaled by
+        depth_scaling_factor, as in the JAX run_stereo). The pairs' PNGs
+        decode two frames ahead on host threads."""
+        idxs = self._frame_indices(len(source), max_frames)
+        if not idxs:
+            return
+        mgr = self.manager
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        loads = ThreadPoolExecutor(2, thread_name_prefix="stereo-load")
+        futs = {}
+
+        def enc_at(pos):
+            for q in (pos, pos + 1, pos + 2):
+                if q < len(idxs) and q not in futs:
+                    futs[q] = loads.submit(source.load, idxs[q])
+            _ts, rgb, gl, gr = futs.pop(pos).result()
+            return mgr.encode(rgb, self.stereo_depth(gl, gr, stream), scale_depth=False)
+
+        try:
+            self._run_frames([source.pairs[i][0] for i in idxs], self._in_order(enc_at), None,
+                             ahead=False)
+        finally:
+            loads.shutdown(wait=True, cancel_futures=True)
+
+    @torch.inference_mode()
+    def stereo_depth(self, gl, gr, stream=None) -> np.ndarray:
+        """A rectified grey pair (H, W) float32 in [0, 1] -> host depth
+        (H, W) float32 metres, 0 where invalid, computed on the pipeline's
+        device (on `stream` where given) with one synchronization."""
+        from ..ops.stereo import stereo_depth
+
+        p = self.params
+        pair = torch.from_numpy(np.stack([np.asarray(gl, np.float32),
+                                          np.asarray(gr, np.float32)]))
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            if self.device.type == "cuda":  # from pinned memory: no synchronization
+                pair = pair.pin_memory()
+            pair = pair.to(self.device, non_blocking=True)
+            depth, _ = stereo_depth(pair[0], pair[1], self.cam.fx, float(p["stereo_baseline"]),
+                                    int(p["stereo_max_disparity"]), int(p["stereo_block_size"]))
+            return depth.cpu().numpy()
+
     def save_bagfile(self, path, include_clouds: bool = False) -> str:
         """The optimized result as a bag (saveBagfile,
         src/graph_mgr_io.cpp:102-150): one /map -> /camera tf a node at its
@@ -252,7 +312,7 @@ class SlamPipeline:
                         bag.write_image(self.params["topic_image_mono"], float(t), rgb)
         return str(path)
 
-    def _run_frames(self, stamps, enc_at, gt0) -> None:
+    def _run_frames(self, stamps, enc_at, gt0, ahead: bool = True) -> None:
         """The frames of a source, in order: enc_at(pos) is frame pos's host
         wire, asked for once a position, in increasing order; gt0 anchors
         the first node. Where the manager can group them, frames go
@@ -262,7 +322,7 @@ class SlamPipeline:
         in flight (the same wires, so the same result). Under the delta
         wire the encodes wait for their dispatch (the host mirror advances
         with each) and groups hold at most 2 frames, as in the JAX
-        package."""
+        package. ahead=False runs every encode on the calling thread."""
         p = self.params
         mgr = self.manager
         n = len(stamps)
@@ -270,7 +330,7 @@ class SlamPipeline:
         if mgr.wire_delta:
             ngroup = min(ngroup, 2)
         ex = (ThreadPoolExecutor(1, thread_name_prefix="encode-ahead")
-              if p["tpu_encode_ahead"] and not mgr.wire_delta and n > 1 else None)
+              if ahead and p["tpu_encode_ahead"] and not mgr.wire_delta and n > 1 else None)
         futs = {}
 
         def get_enc(pos):
@@ -432,6 +492,36 @@ class SlamPipeline:
                                                        cols[valid].cpu().numpy())
             files.append(str(path))
         return files
+
+    def save_mesh(self, path, node_stride: int = 1, jump_frac: float = 0.05) -> int:
+        """Triangle-mesh every node_stride-th node's organized grid into one
+        world-frame PLY (the GL viewer's triangle strips with their
+        depth-jump test, glviewer.cpp:776-880, kept as an indexed mesh).
+        Returns the face count."""
+        from ..io.meshing import compact_mesh, grid_mesh_faces, merge_meshes, write_ply_mesh
+
+        mgr = self.manager
+        hw = (mgr.cam_small.height, mgr.cam_small.width)
+        parts = []
+        for nid in range(0, mgr.n_nodes, max(1, node_stride)):
+            pts, cols, valid, _ = self._node_world_cloud(nid)
+            depth = mgr.store.depth[nid].view(hw).cpu().numpy()
+            faces = grid_mesh_faces(depth, valid.view(hw).cpu().numpy(), jump_frac)
+            parts.append(compact_mesh(pts.cpu().numpy(), cols.cpu().numpy(), faces))
+        verts, cols, faces = merge_meshes(parts)
+        write_ply_mesh(path, verts, cols, faces)
+        return len(faces)
+
+    def save_graph_viz(self, path) -> int:
+        """Graph nodes and edges as a PLY line set coloured by edge type
+        (the RViz markers, graph_mgr_io.cpp:687-932). Returns the edges
+        written."""
+        from ..io.visualization import export_graph_ply
+
+        mgr = self.manager
+        mgr._drain_pending()
+        return export_graph_ply(path, mgr.poses(), mgr.host.edge_pairs,
+                                mgr.graph.edge_active.cpu().numpy(), mgr.host.edge_types)
 
     def save_g2o(self, path) -> None:
         """The pose graph in g2o text format (saveG2OGraph): every node, the

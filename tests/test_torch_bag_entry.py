@@ -219,7 +219,7 @@ def test_cli_inputs(sequence, inputs, tmp_path, capsys, case):
 
 def test_cli_needs_an_input(tmp_path, capsys):
     assert cli.main(["run", "--out", str(tmp_path / "o"), "--device", "cpu"]) == 2
-    assert "one of --tum-dir, --pcd-dir or --bagfile" in capsys.readouterr().err
+    assert "one of --tum-dir, --pcd-dir, --stereo-dir or --bagfile" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,12 @@ stepped eagerly, and the default path adds one wait on a frame that
 rescues and none otherwise. The device step's options (the projective
 refinement, Hessian edges, the exact EMM, the delta wire, the raw wire and
 5-bit luma): the default path still waits once a frame, and replayed groups
-equal eager steps. Imports no JAX, so it runs on the card:
+equal eager steps. With the appearance retrieval (global_loop_candidates):
+replayed groups make no synchronizing call and equal the eager groups bit
+for bit, the default path reads the card once more on a frame that
+retrieves, and the chunked retrieval equals its plain version on the card;
+the stereo disparity on the card equals the CPU's. Imports no JAX, so it
+runs on the card:
 
     python -m pytest --noconftest tests/test_torch_manager.py -q
 """
@@ -472,3 +477,135 @@ def test_option_grouped_replay_equals_eager_steps(option):
     np.testing.assert_allclose(pn, p1, rtol=0, atol=1e-6)
     if option == "wire_delta":
         assert len(set(l1)) == 2  # I and P wires both flowed
+
+
+# global_loop_candidates=2 with room among make_pipe's 8 candidates for the
+# retrieval's hits, no online optimize
+RETRIEVAL_BENCH = dict(BENCH, global_loop_candidates=2, neighbor_candidates=1,
+                       min_sampled_candidates=0, optimizer_skip_step=100)
+
+
+@pytest.mark.cuda
+def test_retrieval_replayed_groups_make_no_sync_and_equal_eager_groups():
+    """make_pipe with the deferred retrieval, 4 frames a step on 40 frames
+    of 640x480: no replayed group synchronizes (the retrieval is queued
+    behind the step and its counts are read a step call later, waiting on
+    their event); the run replayed as CUDA graphs equals the same groups
+    stepped eagerly bit for bit, hits included."""
+    poses, rgbs, depths = _render(40)
+    runs = []
+    for eager in (False, True):
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(dict(RETRIEVAL_BENCH)))
+        mgr = pipe.manager
+        sg, replay_sites = mgr.step_graph, []
+        if eager:
+            mgr.step_graph = None
+        else:
+            group = pipe._process_group
+
+            def watched(*a, **kw):
+                before = (sg.captures, sg.eager_groups)
+                sites = _sync_sites(lambda: group(*a, **kw))
+                if (sg.captures, sg.eager_groups) == before:
+                    replay_sites.append(sites)
+
+            pipe._process_group = watched
+        pipe.run_arrays(rgbs, depths, np.arange(40) / 30.0, gt_poses=poses)
+        runs.append((mgr.poses(), mgr.statistics(), mgr.retrievals, mgr.retrieval_hits,
+                     sg.replays, replay_sites))
+    (p_r, s_r, n_r, h_r, replays, sites), (p_e, s_e, n_e, h_e, _, _) = runs
+    assert replays >= 1 and sites and all(not s for s in sites), sites
+    assert n_r == n_e >= 1 and h_r == h_e >= 1
+    assert s_r == s_e
+    np.testing.assert_array_equal(p_r, p_e)
+
+
+@pytest.mark.cuda
+def test_default_path_retrieval_adds_one_read():
+    """default_params() with global_loop_candidates=2 on 30 frames of
+    640x480: a frame whose candidates leave room retrieves, and reads its
+    hits in one more copy (graph/loop_closing.py); every frame reads its
+    comparison once (graph/manager.py), the online optimize outside the
+    count."""
+    poses, rgbs, depths = _render(30)
+    pipe = SlamPipeline(TUM_DEFAULT, ParameterServer({"global_loop_candidates": 2}))
+    mgr = pipe.manager
+    online = mgr.optimize
+
+    def unwatched_optimize(*args, **kw):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return online(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    mgr.optimize = unwatched_optimize
+    frames = []
+    for i in range(len(rgbs)):
+        before = mgr.retrievals
+        sites = _sync_sites(lambda: pipe.process_frame(
+            rgbs[i], depths[i], i / 30.0, gt_pose=poses[0] if i == 0 else None))
+        frames.append((sites, mgr.retrievals - before))
+    assert sum(k for _, k in frames) >= 1
+    for i, (sites, k) in enumerate(frames[1:], 1):
+        assert sites.count("graph/manager.py") == 1, (i, sites)
+        assert sites.count("graph/loop_closing.py") == k, (i, sites, k)
+        assert set(sites) <= {"graph/manager.py", "graph/loop_closing.py", "backend.py"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_active", [1, 37, 64])
+def test_retrieval_chunked_equals_plain_on_the_card(n_active):
+    """The chunked active-rows route against the capacity-wide plain
+    version on a 64-node store of +/-1 descriptors whose nodes are noisy
+    copies (10-40% of the signs flipped) of the query node's, one of them
+    a near copy (2%), in chunks of 1000 columns."""
+    from rgbdslam_v2_tpu_torch.graph import loop_closing
+    from rgbdslam_v2_tpu_torch.graph.node_store import NodeStore
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    N, K, D = 64, 600, 256
+    q = n_active - 1
+    base = torch.where(torch.rand((K, D), generator=gen, device="cuda") < 0.5, 1, -1)
+    noise = torch.rand((N, 1, 1), generator=gen, device="cuda") * 0.3 + 0.1
+    noise[q] = 0.0
+    noise[max(q - 5, 0)] = 0.02 if q >= 5 else noise[0]
+    flip = torch.rand((N, K, D), generator=gen, device="cuda") < noise
+    desc = torch.where(flip, -base, base).to(torch.int8)
+    one = torch.zeros((N, 1), device="cuda")
+    store = NodeStore(uv=torch.zeros((N, K, 2), device="cuda"),
+                      xyz=torch.zeros((N, K, 3), device="cuda"), desc=desc,
+                      kp_valid=torch.rand((N, K), generator=gen, device="cuda") < 0.9,
+                      depth=one, emm_lohi=one.int(), color=one.to(torch.uint8))
+    got = loop_closing.global_match_scores_from_store(store, q, n_active, exclude_window=2,
+                                                      chunk_columns=1000)
+    plain = loop_closing.global_match_scores_plain(
+        loop_closing.query_from_store(store, q), store,
+        torch.arange(N, device="cuda") < n_active,
+        loop_closing.exclude_window_mask(N, q, 2, "cuda"))
+    assert torch.equal(got, plain)
+    assert n_active < 8 or int(got.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_stereo_disparity_on_the_card_equals_the_cpu():
+    """ops/stereo.py at 640x480 on a rendered rectified pair: the card's
+    disparity, validity and depth equal the CPU's bit for bit (every sum
+    has one order of float32 additions)."""
+    from rgbdslam_v2_tpu_torch.io.stereo_input import png_gray, render_stereo_sequence
+    from rgbdslam_v2_tpu_torch.ops import stereo
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    world = SyntheticWorld.create(seed=1, cam=TUM_DEFAULT)
+    _, lefts, rights, _ = render_stereo_sequence(world, 1, 0.075, seed=2, device="cuda")
+    gl = torch.from_numpy(png_gray(lefts[0]).astype(np.float32) / 255.0)
+    gr = torch.from_numpy(png_gray(rights[0]).astype(np.float32) / 255.0)
+    host = stereo.stereo_depth(gl, gr, TUM_DEFAULT.fx, 0.075)
+    card = stereo.stereo_depth(gl.cuda(), gr.cuda(), TUM_DEFAULT.fx, 0.075)
+    assert float(host[1].float().mean()) > 0.3
+    for a, b in zip(card, host):
+        assert torch.equal(a.cpu(), b)

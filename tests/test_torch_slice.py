@@ -77,7 +77,7 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"use_robot_odom": True}, {"start_paused": True}, {"global_loop_candidates": 2},
+    {"start_paused": True}, {"tpu_mesh_devices": 2}, {"tpu_approx_select": True},
 ])
 def test_config_outside_the_slice_raises(override):
     name = next(iter(override))
