@@ -248,6 +248,31 @@ and prints no result:
      STEREO_L4_JAX, detect = frames, refine = frames - 1, run_stereo fps)
      and mesh.ply parsed, its faces and colours equal to the CPU's mesh of
      the same state and its vertices within 1e-5 m.
+ 17. many sequences at once (parallel/): MULTI_S sequences of MULTI_FRAMES
+     640x480 frames, each on its own world (render_multi), through
+     MultiSequenceSlam with make_pipe's parameters (multi_params: its
+     pose_relative_to set to "first" as the UNSUPPORTED contract sets it)
+     and its 5-level protocol: every L4 at most MULTI_L4_MAX; detect S a
+     lockstep frame, refine S a frame after the first, Kabsch 0; 0
+     synchronizing calls in replayed lockstep frames (every key: one
+     eager frame, one capture); host ms a replayed frame (whole call,
+     graph replay, drains), capture s, graph-pool MiB, state and peak MiB
+     a sequence. Sequences MULTI_SINGLE alone through GraphManager with
+     tpu_seed i on the same wires (add_frame): equal edge mirrors, edge
+     types and keyframes, L0 and L4 within MULTI_SINGLE_TOL. Without
+     online optimizes, MULTI_EQUAL_FRAMES frames: the replayed lockstep
+     graph equals eager steps and a 2-shard mesh on the one card equals
+     mesh=None, bitwise. sharded_compare over that mesh equals the
+     per-shard calls bitwise; sharded_lm_iteration on a 1024-node loop
+     graph is within the JAX test's tolerances of lm_iteration.
+     vo_trajectories_sharded on the same sequences (VO_MULTI): L0 within
+     max(1.5 x, + 5 mm) of VO_MULTI_L0_JAX, detect and refine launches.
+     GraphManager with tpu_mesh_devices above the cards raises ValueError;
+     `rgbdslam-torch slam-multi --devices auto` on phase 12's two TUM
+     directories writes its report. In clean processes
+     (tools/slam_multi_fps.py, tools/make_pipe_fps.py): sequence-frames/s
+     against S x make_pipe's fps on sequence 0, and a torch.profiler
+     window's device ms and busy share a lockstep frame.
 Phase 2 also holds the refine kernel with its projective stage
 (projective_iterations PROJ_ITERATIONS) to its plain version in float64.
 
@@ -257,7 +282,7 @@ each later phase's; the Kabsch kernel's are 0 there, its refits having
 moved into the refine kernel; the refine kernel with its projective stage
 has an entry of its own, launched on phase 14's refinement runs); the last
 line is {"ok": true, "device": {...}}. --frames N (at least 23; phase 15's
-F22 check needs 60) shortens phases 3-16 to N frames each.
+F22 check needs 60) shortens phases 3-17 to N frames each.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -484,6 +509,28 @@ CAM_644 = (525.0, 525.0, 321.5, 241.5, 644, 484)  # not divisible by 8, divisibl
 # L4 to the bound: on an H100 hessian reads 0.0506, 0.0334, 0.0266 and
 # 0.0343 m with seeds 0-3, one draw alone as noisy as the JAX package's
 OPTION_SEEDS = (0, 1)
+
+
+# phase 17: S sequences of full SLAM in lockstep (parallel/slam_multi.py),
+# each on its own world: world MULTI_WORLD_SEED0 + s, orbit
+# MULTI_ORBIT_SEED0 + s, 640x480, depth without noise quantized to 1/5000 m
+MULTI_S = 8
+MULTI_FRAMES = 120
+MULTI_WORLD_SEED0 = 100
+MULTI_ORBIT_SEED0 = 200
+MULTI_EQUAL_FRAMES = 40  # replay = eager and mesh = no mesh, no online optimize
+MULTI_SINGLE = (0, 7)  # sequences run alone through GraphManager
+MULTI_L4_MAX = 0.05  # metres, tests/test_slam_multi.py's bound
+MULTI_SINGLE_TOL = 1e-4  # metres: L0 and L4 of sequence i against the single manager
+MULTI_PROFILE_FRAMES = 10  # lockstep frames under torch.profiler (tools/slam_multi_fps.py)
+# vo-multi's settings (the JAX CLI's: ORB with max_keypoints, RANSAC with
+# ransac_iterations and min_matches, make_pipe's values), and the JAX
+# package's L0 of each sequence on its own renders of the same frames, on
+# the CPU (JAX_PLATFORMS=cpu python3 tools/vo_multi_jax_reference.py)
+VO_MULTI = dict(max_keypoints=600, n_hypotheses=200, min_inliers=20, sigma_depth=0.01,
+                max_matches=128, ratio=0.9, seed=0)
+VO_MULTI_L0_JAX = (0.00446, 0.00442, 0.05279, 0.00599, 0.12747, 0.00262, 0.00511,
+                   0.00316)  # metres, one a sequence
 
 
 def option_limit(l4_seeds) -> float:
@@ -1049,7 +1096,7 @@ def rescue_item_ms(mgr, nid: int) -> dict:
 
 
 CHECKPOINT_AT, CHECKPOINT_MORE = 260, 60  # phase 12: frames before the save, after it
-TUM_FPS_FRAMES = 260  # phase 12: frames of each alternating fps run (once 520)
+TUM_FPS_FRAMES = 130  # phase 12: frames of each alternating fps run (once 520, then 260)
 VOXEL_NODES = 10  # phase 12: node clouds inserted on the card and on the CPU
 UNFILTER_FRAMES = 20  # phase 12: Up-filtered frames unfiltered in C and in numpy
 # phase 12: adaptively filtered frames unfiltered in numpy too (its Average
@@ -2542,6 +2589,531 @@ def report_phase16(p: dict, frames: int) -> None:
           f"equal, vertices within {s['mesh_vert_diff']:.2e} m")
 
 
+def render_multi(device, frames: int = MULTI_FRAMES, S: int = MULTI_S) -> list:
+    """Phase 17's sequences rendered on device: [(poses, rgb u8, depth u16
+    TUM counts)] a sequence, world MULTI_WORLD_SEED0 + s, orbit
+    MULTI_ORBIT_SEED0 + s, depth without noise
+    (tools/vo_multi_jax_reference.py renders the same with the JAX
+    package)."""
+    import numpy as np
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
+
+    out = []
+    for s in range(S):
+        world = SyntheticWorld.create(seed=MULTI_WORLD_SEED0 + s, cam=TUM_DEFAULT)
+        poses, rgbs, depths = render_sequence(world, frames, seed=MULTI_ORBIT_SEED0 + s,
+                                              device=device)
+        out.append((poses, rgbs, np.clip(depths * 5000.0 + 0.5, 0, 65535).astype(np.uint16)))
+    return out
+
+
+def multi_params(**over):
+    """make_pipe's parameters as MultiSequenceSlam runs them: its
+    pose_relative_to="inaffected" set to "first" as the UNSUPPORTED
+    contract sets it (here, so that the single managers of the comparison
+    get the same)."""
+    return make_pipe_params(**{"pose_relative_to": "first", **over})
+
+
+def multi_run(seqs, wires, frames: int, mesh=None, eager: bool = False,
+              watch: bool = False, params=None) -> dict:
+    """MultiSequenceSlam over the first `frames` lockstep frames of the
+    encoded sequences (`wires`, a list a sequence): its trajectories, host
+    mirrors and statistics; with watch, the synchronizing calls of each
+    replayed lockstep frame, host ms a replayed frame (whole call, graph
+    replay, drains), capture seconds, the reserved MiB the capture frame
+    added, peak MiB and the detect/refine/Kabsch launches of the run."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.graph.manager import GraphManager
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
+    from rgbdslam_v2_tpu_torch.parallel.slam_multi import MultiSequenceSlam, _SeqManager
+
+    S = len(seqs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = MultiSequenceSlam(TUM_DEFAULT, S, params=params or multi_params(), mesh=mesh)
+    if eager:
+        for sh in ms.shards:
+            sh.steps = None
+    gt0 = np.stack([p[0] for p, _, _ in seqs])
+    out = dict(sites=[], host_ms=[], replay_ms=[], drain_ms=[], opt_ms=[], pool_mib=0.0)
+    drain_s, opt_s = [0.0], [0.0]
+
+    def timed(fn, acc):
+        def run(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        return run
+
+    def state():
+        return [(sh.steps.captures, sh.steps.eager_groups) for sh in ms.shards if sh.steps]
+
+    detect.reset_launches()
+    registration.reset_launches()
+    alignment.reset_launches()
+    with (patched(_SeqManager, "_drain_pending", timed(GraphManager._drain_pending, drain_s)),
+          patched(_SeqManager, "_consume_ready_staged",
+                  timed(GraphManager._consume_ready_staged, drain_s)),
+          patched(_SeqManager, "optimize", timed(GraphManager.optimize, opt_s))):
+        for k in range(frames):
+            def step(k=k):
+                ms.add_frames(np.stack([w[k] for w in wires]), np.full(S, k / 30.0),
+                              gt_poses=gt0 if k == 0 else None)
+            before, rs0, d0, o0 = state(), sum(sh.steps.replay_s for sh in ms.shards
+                                               if sh.steps), drain_s[0], opt_s[0]
+            allocated = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            sites = sync_sites(step) if watch else step()
+            dt = time.perf_counter() - t0
+            after = state()
+            if [c for c, _ in after] != [c for c, _ in before]:
+                out["pool_mib"] += (torch.cuda.memory_allocated() - allocated) / 2**20
+            if k > 0 and after == before and not eager:
+                out["sites"].append(sites)
+                out["host_ms"].append(1e3 * dt)
+                out["replay_ms"].append(1e3 * (sum(sh.steps.replay_s for sh in ms.shards
+                                                   if sh.steps) - rs0))
+                out["drain_ms"].append(1e3 * (drain_s[0] - d0))
+                out["opt_ms"].append(1e3 * (opt_s[0] - o0))
+    out["launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
+    torch.cuda.synchronize()
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["state_mib"] = ms.state_bytes() / 2**20
+    out["capture_s"] = sum(sh.steps.capture_s for sh in ms.shards if sh.steps)
+    out["steps"] = [(sh.steps.eager_groups, sh.steps.captures, sh.steps.replays)
+                    for sh in ms.shards if sh.steps]
+    ms._drain()
+    out["ms"] = ms
+    out["poses"] = ms.trajectories()
+    out["mirrors"] = [(sq.host.edge_active.copy(), sq.host.edge_i.copy(), sq.host.edge_j.copy(),
+                       list(sq.host.edge_types), list(sq.host.keyframes)) for sq in ms.seq]
+    return out
+
+
+def unobservable_nodes(mirrors, n: int) -> list:
+    """F26 (ROADMAP Queue 3): the nodes of a dangling constant-position
+    chain in a keep-all graph's host mirrors (edge_active, edge_i, edge_j,
+    edge_types, ...). A run of nodes that no visual edge reaches is tied
+    to the trajectory only by the constant-position fallback edges; where
+    the frame after it registered visually it has no fallback edge, so
+    the run hangs from one end and its poses are unconstrained (the
+    reference and the JAX package build the same graph). Node 0 is the
+    anchor."""
+    from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
+
+    active, ei, ej, types = mirrors[:4]
+    visual, const = {0}, set()
+    for e, t in enumerate(types):
+        if active[e]:
+            pair = (int(ei[e]), int(ej[e]))
+            if t == EDGE_CONST_POSITION:
+                const.add((min(pair), max(pair)))
+            else:
+                visual.update(pair)
+    out, v = [], 1
+    while v < n:
+        if v in visual:
+            v += 1
+            continue
+        w = v
+        while w + 1 < n and w + 1 not in visual:
+            w += 1
+        if not all((k, k + 1) in const for k in range(v - 1, min(w + 1, n - 1))) or w == n - 1:
+            out.extend(range(v, w + 1))
+        v = w + 1
+    return out
+
+
+def manager_protocol(run, gt_stamps, gt_xyz) -> dict:
+    """The 5-level protocol's ATE of a GraphManager, as
+    MultiSequenceSlam.evaluation_protocol runs it: {level: [rmse]}."""
+    from rgbdslam_v2_tpu_torch.eval.ate import evaluate_ate
+
+    p = run.params
+    out = {0: run.poses()}
+    run.optimize(iterations=p["optimizer_iterations"] * 2)
+    out[1] = run.poses()
+    for level, thresh in ((2, p["edge_error_threshold"]), (3, 1.0), (4, 0.25)):
+        run.prune_edges_above(thresh)
+        run.optimize(iterations=p["optimizer_iterations"])
+        out[level] = run.poses()
+    return {lv: [float(evaluate_ate(run.timestamps, poses[:, :3, 3], gt_stamps, gt_xyz).rmse)]
+            for lv, poses in out.items()}
+
+
+def loop_graph(n: int, device, drift: float = 0.002, seed: int = 0):
+    """tests/test_pose_graph.py's loop graph at n nodes on device: a circle,
+    odometry edges with drift-sized noise (numpy-seeded), one exact loop
+    closure, poses chained from the noisy odometry, information 100 I."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.core import se3
+    from rgbdslam_v2_tpu_torch.optim.pose_graph import make_graph_state
+
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n) / n
+    xi = np.stack([np.cos(ang), np.sin(ang), 0 * ang, 0 * ang, 0 * ang, ang], -1)
+    gt = se3.exp_se3(torch.tensor(xi, dtype=torch.float32))
+    rel = se3.inv(gt[:-1]) @ gt[1:]
+    meas = rel @ se3.exp_se3(torch.tensor(rng.normal(0, drift, (n - 1, 6)), dtype=torch.float32))
+    meas = torch.cat([meas, (se3.inv(gt[-1]) @ gt[0])[None]])
+    init = [gt[0]]
+    for k in range(n - 1):
+        init.append(init[-1] @ meas[k])
+    g = make_graph_state(n, n, device=device)
+    g.poses.copy_(torch.stack(init))
+    g.node_active.fill_(True)
+    g.node_fixed[0] = True
+    g.edge_i.copy_(torch.cat([torch.arange(n - 1), torch.tensor([n - 1])]).to(torch.int32))
+    g.edge_j.copy_(torch.cat([torch.arange(1, n), torch.tensor([0])]).to(torch.int32))
+    g.edge_meas.copy_(meas)
+    g.edge_info.copy_(torch.eye(6).expand(n, 6, 6) * 100.0)
+    g.edge_active.fill_(True)
+    return g
+
+
+def clean_multi_fps(seqs, wires, root: Path) -> dict:
+    """Phase 17's fps in processes of their own: tools/slam_multi_fps.py on
+    the encoded sequences (with the torch.profiler window), then
+    tools/make_pipe_fps.py on sequence 0's frames."""
+    import numpy as np
+
+    d = root / "multi_fps"
+    d.mkdir()
+    T = len(wires[0])
+    np.save(d / "wires.npy", np.stack([np.stack(w) for w in wires], axis=1))
+    np.save(d / "stamps.npy", np.arange(T) / 30.0)
+    np.save(d / "gt0.npy", np.stack([poses[0] for poses, _, _ in seqs]))
+    poses, rgbs, depths = seqs[0]
+    for name, arr in (("poses", poses), ("rgbs", rgbs), ("depths", depths),
+                      ("stamps", np.arange(T) / 30.0)):
+        np.save(d / f"{name}.npy", np.ascontiguousarray(arr))
+    out = {}
+    for name, tool in (("multi", "slam_multi_fps.py"), ("single", "make_pipe_fps.py")):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "tools" / tool), str(d)],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"tools/{tool} exited {r.returncode}: {r.stderr[-2000:]}")
+        out[name] = json.loads(r.stdout.strip().splitlines()[-1])
+        out[name]["process_s"] = time.perf_counter() - t0
+    shutil.rmtree(d)
+    return out
+
+
+def phase17(dev, tum_dirs, root: Path, frames: int = MULTI_FRAMES) -> dict:
+    """ROADMAP item 28 on the card (see the module docstring, phase 17);
+    fails on a gate, returns the records."""
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.config import ParameterServer
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.eval.ate import evaluate_ate
+    from rgbdslam_v2_tpu_torch.graph.compare import compare_to_candidates
+    from rgbdslam_v2_tpu_torch.graph.manager import GraphManager
+    from rgbdslam_v2_tpu_torch.models.orb import OrbExtractor
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
+    from rgbdslam_v2_tpu_torch.optim.pose_graph import lm_iteration
+    from rgbdslam_v2_tpu_torch.parallel import DeviceMesh, candidate_mesh, vo_trajectories_sharded
+    from rgbdslam_v2_tpu_torch.parallel.sharded import (shard_generators, sharded_compare,
+                                                        sharded_lm_iteration)
+
+    p = {"seconds": {}}
+    t_all = t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        p["seconds"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    S, T = MULTI_S, frames
+    p["frames"] = T
+    seqs = render_multi(dev, T, S)
+    p["size"] = "x".join(map(str, seqs[0][1].shape[2:0:-1]))
+    stamps = list(np.arange(T) / 30.0)
+    gt_xyz = [poses[:, :3, 3] for poses, _, _ in seqs]
+    ms0 = GraphManager(TUM_DEFAULT, multi_params(tpu_max_nodes=2, tpu_max_edges=32), device=dev)
+    t_enc = time.perf_counter()
+    wires = [[ms0.encode(r, d) for r, d in zip(rgbs, depths)] for _, rgbs, depths in seqs]
+    p["encode_ms"] = 1e3 * (time.perf_counter() - t_enc) / T  # S encodes a lockstep frame
+    del ms0
+    lap("render and encode")
+
+    # ---- the main run: 8 sequences, make_pipe, online optimizes ---------
+    run = multi_run(seqs, wires, T, watch=True)
+    p["launches"] = run["launches"]
+    if run["launches"][:2] != (S * T, S * (T - 1)) or run["launches"][2] != 0:
+        fail(f"[17 multi] launches (detect, refine, Kabsch) {run['launches']}, expected "
+             f"({S * T}, {S * (T - 1)}, 0)")
+    bad = [s for s in run["sites"] if s]
+    p["replayed"], p["steps"] = len(run["sites"]), (run["steps"] or [(0, 0, 0)])[0]
+    eager, captures, replays = p["steps"]
+    # a key (every sequence's FAST threshold) runs eagerly once, then is
+    # captured (and replayed) on its next frame and replayed after; the
+    # adaptive detector makes new keys
+    if bad or eager != captures or eager + replays != T - 1:
+        fail(f"[17 multi] replayed lockstep frames synchronized {bad[:3]} (eager, captured, "
+             f"replayed {run['steps']})")
+    for key in ("host_ms", "replay_ms", "drain_ms"):
+        p[key] = statistics.median(run[key])
+    p["host_mean_ms"] = statistics.mean(run["host_ms"])
+    opt = [x for x in run["opt_ms"] if x > 0]  # the lockstep frames with online optimizes
+    p["opt_ms"] = (statistics.mean(run["opt_ms"]), statistics.mean(opt) if opt else 0.0, len(opt))
+    p.update(peak_mib=run["peak_mib"], state_mib=run["state_mib"], capture_s=run["capture_s"],
+             pool_mib=run["pool_mib"], stats=run["ms"].statistics())
+    mirrors_main = run["mirrors"]  # read before the protocol prunes
+    levels, ate = run["ms"].evaluation_protocol(gt_stamps=[stamps] * S, gt_xyz=gt_xyz)
+    ate = p["ate"] = {lv: [float(x) for x in v] for lv, v in ate.items()}
+    # the gate's L4: over the frames a visual edge constrains (F26's
+    # dangling chains left out, and counted)
+    p["f26"], p["l4_gate"] = {}, []
+    for i in range(S):
+        hang = unobservable_nodes(mirrors_main[i], T)
+        keep = np.setdiff1d(np.arange(T), hang)
+        if hang:
+            p["f26"][i] = hang
+        p["l4_gate"].append(float(evaluate_ate(np.asarray(stamps)[keep], levels[4][i, keep, :3, 3],
+                                               stamps, gt_xyz[i]).rmse))
+    if not all(np.isfinite(x) and x <= MULTI_L4_MAX for x in p["l4_gate"]):
+        fail(f"[17 multi] L4 over the constrained frames {p['l4_gate']} (limit {MULTI_L4_MAX} m "
+             f"each; all frames {ate[4]}, dangling chains {p['f26']})")
+    lap("multi run")
+
+    # ---- sharded compare on the main run's store: 2 shards on one card --
+    sq = run["ms"].seq[0]
+    kp, depth_small, _ = sq._extract(sq._to_device(wires[0][T // 2]))
+    h = T // 2  # its 4 predecessors and 4 earlier nodes
+    cand = torch.tensor([h - 1, h - 2, h - 3, h - 4, *np.linspace(0, h - 5, 4).astype(int)],
+                        device=dev)
+    mesh2 = DeviceMesh((dev, dev))
+    kw = dict(cam_fx=TUM_DEFAULT.fx, cam_fy=TUM_DEFAULT.fy, cam_cx=TUM_DEFAULT.cx,
+              cam_cy=TUM_DEFAULT.cy, **sq._compare_kwargs())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ref_gen = torch.Generator(device=dev)
+    ref_gen.set_state(gen.get_state())
+    got = sharded_compare(mesh2, kp, depth_small, sq.store, cand, gen, sq.cam_small, **kw)
+    parts = [compare_to_candidates(kp, depth_small, sq.store, cand[lo:hi], g, sq.cam_small, **kw)
+             for (_, lo, hi), g in zip(mesh2.blocks(8), shard_generators(ref_gen, mesh2.devices))]
+    diff = [k for k, v in got._asdict().items()
+            if v is not None and not torch.equal(v, torch.cat([getattr(x, k) for x in parts]))]
+    if diff:
+        fail(f"[17 sharded] sharded_compare differs from the per-shard calls in {diff}")
+    p["compare_ok"] = int(got.ransac_ok.sum())
+    del run, sq, kp, got, parts
+    lap("sharded compare")
+
+    # ---- sequences 0 and 7 alone through GraphManager ------------------
+    p["single"] = {}
+    for i in MULTI_SINGLE:
+        mgr = GraphManager(TUM_DEFAULT, multi_params(tpu_seed=i), device=dev)
+        poses = seqs[i][0]
+        for k in range(T):
+            mgr.add_frame(None, None, k / 30.0, ground_truth_pose=poses[0] if k == 0 else None,
+                          compact=wires[i][k])
+        mgr._drain_pending()
+        h = mgr.host
+        mirrors = (h.edge_active, h.edge_i, h.edge_j, h.edge_types, h.keyframes)
+        same = all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(mirrors, mirrors_main[i]))
+        single = manager_protocol(mgr, stamps, gt_xyz[i])
+        d = {lv: abs(single[lv][0] - ate[lv][i]) for lv in (0, 4)}
+        p["single"][i] = dict(same=same, l0=single[0][0], l4=single[4][0], d0=d[0], d4=d[4],
+                              edges=h.n_edges, keyframes=len(h.keyframes))
+        del mgr
+        if not same or max(d.values()) > MULTI_SINGLE_TOL:
+            fail(f"[17 single] sequence {i} against GraphManager with tpu_seed {i}: mirrors "
+                 f"equal {same}, |L0 - L0'| {d[0]:.3e}, |L4 - L4'| {d[4]:.3e} (limit "
+                 f"{MULTI_SINGLE_TOL} m)")
+    lap("single managers")
+
+    # ---- replay = eager and mesh = no mesh, no online optimize ----------
+    n_eq = min(MULTI_EQUAL_FRAMES, T)
+    eq = multi_params(optimizer_skip_step=10**6)
+    graph_run = multi_run(seqs, wires, n_eq, params=eq)
+    mirrors_graph, poses_graph = graph_run["mirrors"], graph_run["poses"]
+    del graph_run
+    eager_run = multi_run(seqs, wires, n_eq, eager=True, params=eq)
+    p["replay_vs_eager"] = float(np.abs(eager_run["poses"] - poses_graph).max())
+    if not (np.array_equal(eager_run["poses"], poses_graph) and all(
+            all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(x, y))
+            for x, y in zip(eager_run["mirrors"], mirrors_graph))):
+        fail(f"[17 equal] replayed lockstep frames differ from eager ones: max pose "
+             f"difference {p['replay_vs_eager']:.3e}")
+    del eager_run
+    mesh_run = multi_run(seqs, wires, n_eq, mesh=mesh2, params=eq)
+    p["mesh_steps"] = mesh_run["steps"]
+    p["mesh_vs_none"] = float(np.abs(mesh_run["poses"] - poses_graph).max())
+    if not (np.array_equal(mesh_run["poses"], poses_graph) and all(
+            all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(x, y))
+            for x, y in zip(mesh_run["mirrors"], mirrors_graph))):
+        fail(f"[17 equal] the 2-shard mesh differs from mesh=None: max pose difference "
+             f"{p['mesh_vs_none']:.3e}")
+    del mesh_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("replay = eager, mesh = no mesh")
+
+    # ---- sharded LM on a 1024-node graph --------------------------------
+    g = loop_graph(1024, dev)
+    lam = torch.tensor(1e-4, device=dev)
+    p1, _, cb1, ca1 = lm_iteration(g, lam, 1.0, 32, solver="pcg")
+    p2, _, cb2, ca2 = sharded_lm_iteration(mesh2, g, lam, 1.0, 32)
+    p["lm"] = dict(chi2_before=(float(cb1), float(cb2)), chi2_after=(float(ca1), float(ca2)),
+                   pose_diff=float((p1 - p2).abs().max()))
+    lm = p["lm"]
+    if not (abs(lm["chi2_before"][0] - lm["chi2_before"][1]) < 1e-2 * max(lm["chi2_before"][0], 1)
+            and abs(lm["chi2_after"][0] - lm["chi2_after"][1]) < 5e-2 * max(lm["chi2_after"][0], 1)
+            and lm["pose_diff"] < 1e-3):
+        fail(f"[17 sharded] sharded_lm_iteration against lm_iteration: {lm}")
+    del g, p1, p2
+    lap("sharded LM")
+
+    # ---- vo-multi: the same 8 sequences ----------------------------------
+    luma = np.array([0.299, 0.587, 0.114], np.float32)
+    grays = [(rgbs.astype(np.float32) @ luma) / 255.0 for _, rgbs, _ in seqs]
+    dm = [d.astype(np.float32) / 5000.0 for _, _, d in seqs]
+    vkw = dict(VO_MULTI)
+    ext = OrbExtractor(max_keypoints=vkw.pop("max_keypoints"))
+    seed = vkw.pop("seed")
+    detect.reset_launches()
+    registration.reset_launches()
+    alignment.reset_launches()
+    torch.cuda.synchronize()
+    tv = time.perf_counter()
+    res = vo_trajectories_sharded(candidate_mesh(), grays, dm, seed, ext, TUM_DEFAULT, **vkw)
+    est = res.poses.cpu().numpy()
+    p["vo_s"] = time.perf_counter() - tv
+    p["vo_launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
+    p["vo_l0"] = [float(evaluate_ate(stamps, est[s, :, :3, 3], stamps, gt_xyz[s]).rmse)
+                  for s in range(S)]
+    p["vo_ok"] = float(res.ok.float().mean())
+    del grays, dm, res
+    if p["vo_launches"] != (S * T, S * (T - 1), 0):
+        fail(f"[17 vo] launches (detect, refine, Kabsch) {p['vo_launches']}")
+    if VO_MULTI_L0_JAX is not None and T == MULTI_FRAMES:
+        lim = [max(1.5 * j, j + 0.005) for j in VO_MULTI_L0_JAX]
+        if not all(a <= b for a, b in zip(p["vo_l0"], lim)):
+            fail(f"[17 vo] L0 {p['vo_l0']} against the limits {lim}")
+    lap("vo-multi")
+
+    # ---- no fallback to the CPU; the CLI on phase 12's TUM directories ---
+    n_cards = torch.cuda.device_count()
+    try:
+        GraphManager(TUM_DEFAULT, ParameterServer({"tpu_mesh_devices": n_cards + 1}))
+        fail(f"[17 mesh] GraphManager with tpu_mesh_devices={n_cards + 1} built")
+    except ValueError as exc:
+        p["mesh_refusal"] = str(exc)
+        if f"requested {n_cards + 1} devices, have {n_cards}" not in str(exc):
+            fail(f"[17 mesh] refusal reads {exc}")
+    out = root / "slam_multi"
+    code, stdout, _ = run_cli(["slam-multi", *tum_dirs, "--devices", "auto", "--out", out,
+                               "--max-frames", T, *make_pipe_flags()])
+    if code != 0 or not (out / "slam_multi_report.json").is_file():
+        fail(f"[17 cli] rgbdslam-torch slam-multi exited {code}")
+    rep = json.loads((out / "slam_multi_report.json").read_text())
+    p["cli"] = dict(devices=rep["devices"], frames=rep["frames"],
+                    l4=[e["ate_rmse"]["4"] for e in rep["sequences"].values()],
+                    files=len(list(out.glob("seq*_estimate_iteration_*.txt"))))
+    if rep["devices"] != n_cards or p["cli"]["files"] != 5 * len(tum_dirs):
+        fail(f"[17 cli] report {p['cli']}")
+    lap("refusal and CLI")
+
+    p["fps"] = clean_multi_fps(seqs, wires, root)
+    lap("clean-process fps")
+    p["total_s"] = time.perf_counter() - t_all
+    return p
+
+
+def report_phase17(p: dict, smi_line: str) -> None:
+    """Phase 17's lines."""
+    S, T = MULTI_S, p["frames"]
+    ate, st = p["ate"], p["stats"]
+    phase(f"[17 multi] MultiSequenceSlam: {S} sequences x {T} lockstep frames of {p['size']}, "
+          f"make_pipe (pose_relative_to first), one world each; protocol L0 "
+          f"{' / '.join(f'{x:.4f}' for x in ate[0])} m; L4 "
+          f"{' / '.join(f'{x:.4f}' for x in ate[4])} m (all frames); active edges "
+          f"{' / '.join(str(s['active_edges']) for s in st)}, loop edges "
+          f"{' / '.join(str(s['loop_edges']) for s in st)}, keyframes "
+          f"{' / '.join(str(s['keyframes']) for s in st)}")
+    phase(f"[17 multi] L4 over the frames a visual edge constrains "
+          f"{' / '.join(f'{x:.4f}' for x in p['l4_gate'])} m (limit {MULTI_L4_MAX} each); "
+          f"dangling constant-position "
+          f"chains (F26; excluded there): "
+          + ("; ".join(f"sequence {i}: nodes {v[0]}-{v[-1]} ({len(v)})"
+                       for i, v in p["f26"].items()) or "none"))
+    phase(f"[17 multi] launches: detect {p['launches'][0]} (= {S} x {T}), refine "
+          f"{p['launches'][1]} (= {S} x {T - 1}), Kabsch {p['launches'][2]}; the lockstep step "
+          f"(one CUDA graph of {S} step bodies a key): {p['steps'][0]} eager frames, "
+          f"{p['steps'][1]} captures, {p['steps'][2]} replays; synchronizing calls in the "
+          f"{p['replayed']} replayed lockstep frames: 0; capture "
+          f"{p['capture_s']:.3f} s, graph pools {p['pool_mib']:.1f} MiB (memory the capture "
+          f"frames left allocated); state {p['state_mib'] / S:.1f} MiB a sequence, peak "
+          f"{p['peak_mib'] / S:.1f} MiB a sequence ({p['peak_mib']:.1f} MiB in all) [{smi_line}]")
+    om = p["opt_ms"]
+    phase(f"[17 multi] host ms a replayed lockstep frame: add_frames median {p['host_ms']:.3f} "
+          f"(graph replay {p['replay_ms']:.3f}, drains {p['drain_ms']:.3f}, the rest slot "
+          f"selection, packing and copies), mean {p['host_mean_ms']:.3f}, of which the online "
+          f"optimizes {om[0]:.3f} ({om[2]} lockstep frames with {S} of them, {om[1]:.3f} ms "
+          f"each such frame); encode of the {S} wires {p['encode_ms']:.3f} ms a lockstep frame "
+          f"(before the run) [{smi_line}]")
+    for i, s in p["single"].items():
+        phase(f"[17 single] sequence {i} against GraphManager(tpu_seed={i}) fed the same wires "
+              f"with add_frame: edge mirrors, edge types and keyframes equal {s['same']} "
+              f"({s['edges']} edge slots, {s['keyframes']} keyframes); L0 {s['l0']:.6f} against "
+              f"{ate[0][i]:.6f} m (|d| {s['d0']:.2e}), L4 {s['l4']:.6f} against "
+              f"{ate[4][i]:.6f} m (|d| {s['d4']:.2e}; limit {MULTI_SINGLE_TOL})")
+    phase(f"[17 equal] {min(MULTI_EQUAL_FRAMES, T)} lockstep frames without online optimize: "
+          f"replayed = eager steps, max pose difference {p['replay_vs_eager']:.1e} (bitwise, "
+          f"edge mirrors equal); a 2-shard mesh (cuda:0, cuda:0) = mesh=None "
+          f"{p['mesh_vs_none']:.1e} (bitwise; each shard: eager, captured, replays "
+          f"{p['mesh_steps']})")
+    lm = p["lm"]
+    phase(f"[17 sharded] sharded_compare over the 2-shard mesh = the per-shard "
+          f"compare_to_candidates calls concatenated (bitwise; {p['compare_ok']} of 8 "
+          f"candidates registered); sharded_lm_iteration on a 1024-node loop graph against "
+          f"lm_iteration (PCG, 32 iterations): chi2 before {lm['chi2_before'][1]:.4f} / "
+          f"{lm['chi2_before'][0]:.4f}, after {lm['chi2_after'][1]:.4f} / "
+          f"{lm['chi2_after'][0]:.4f}, max pose difference {lm['pose_diff']:.2e} (JAX's "
+          f"tolerances: 1e-2, 5e-2 relative, 1e-3)")
+    jax_l0 = VO_MULTI_L0_JAX if T == MULTI_FRAMES else None
+    phase(f"[17 vo] vo_trajectories_sharded on the {S} sequences ({T} frames, ORB-600, RANSAC "
+          f"200): L0 {' / '.join(f'{x:.4f}' for x in p['vo_l0'])} m"
+          + ("" if jax_l0 is None else
+             f" against the JAX package's {' / '.join(f'{x:.4f}' for x in jax_l0)} m (limit "
+             f"max(1.5 x, + 5 mm))")
+          + f"; RANSAC success {p['vo_ok']:.3f}; launches detect {p['vo_launches'][0]}, "
+          f"refine {p['vo_launches'][1]}, Kabsch {p['vo_launches'][2]}; {p['vo_s']:.2f} s "
+          f"[{smi_line}]")
+    cli = p["cli"]
+    phase(f"[17 cli] GraphManager with tpu_mesh_devices above the cards: ValueError "
+          f"\"{p['mesh_refusal']}\"; rgbdslam-torch slam-multi --devices auto on phase 12's "
+          f"two TUM directories, {cli['frames']} frames, make_pipe: {cli['devices']} device, "
+          f"{cli['files']} trajectory files and slam_multi_report.json, L4 "
+          f"{' / '.join(f'{x:.4f}' for x in cli['l4'])} m")
+    m, s1 = p["fps"]["multi"], p["fps"]["single"]
+    phase(f"[17 fps] clean processes (tools/slam_multi_fps.py), {T} frames, {WARMUP} warm-up: "
+          f"slam-multi {m['sequence_frames_per_s']:.2f} sequence-frames/s "
+          f"({m['lockstep_fps']:.2f} lockstep frames/s, wires encoded ahead, "
+          f"{m['frames_timed']} timed) against {S} x make_pipe's {s1['fps']:.2f} fps on "
+          f"sequence 0 (tools/make_pipe_fps.py, {s1['frames']} timed) = {S * s1['fps']:.2f}; "
+          f"profiler window of {m['profile_frames']} "
+          f"lockstep frames: device busy {m['device_ms'] or float('nan'):.3f} ms a lockstep "
+          f"frame, {100 * (m['busy_share'] or float('nan')):.1f}% of wall "
+          f"({m['wall_ms']:.3f} ms), {m['device_ops']:.0f} device activities; processes "
+          f"{m['process_s']:.1f} / {s1['process_s']:.1f} s [{smi_line}]")
+    phase(f"[17 seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in p["seconds"].items())
+          + f"; phase {p['total_s']:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=520)
@@ -3379,7 +3951,6 @@ def main() -> None:
           f"the rgbdslam-torch CLI), batch evaluation over phase 12's TUM directories, and "
           f"3 frames a step")
     bp = bag_phase(poses, rgbs, depths, stamps, dev, Path(work.name))
-    work.cleanup()
     nb, st = bp["bag_frames"], bp["stats"]
     phase(f"[15 bag] {nb} frames written as a ROS bag (rgb8 + 32FC1 meters, /tf ground truth "
           f"as /kinect, uncompressed chunks): {bp['bag_mib']:.1f} MiB in "
@@ -3443,6 +4014,19 @@ def main() -> None:
         odometry_only=p16["odometry"]["only"]["launches"],
         odometry_visual=p16["odometry"]["visual"]["launches"],
         stereo=p16["stereo"]["launches"])
+
+    # ---- 17. many sequences at once: slam-multi, vo-multi, the mesh -------
+    del p16
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"[17 multi] ROADMAP item 28: {MULTI_S} sequences of full SLAM in lockstep "
+          f"(parallel/slam_multi.py), the same through GraphManager one by one, replay = eager, "
+          f"a 2-shard mesh, the sharded compare and LM, vo-multi, and the slam-multi CLI")
+    p17 = phase17(dev, [Path(work.name) / "tum", Path(work.name) / "tum_adaptive"],
+                  Path(work.name), min(MULTI_FRAMES, args.frames))
+    work.cleanup()  # phase 12's TUM directories served phases 15 and 17
+    report_phase17(p17, smi_line)
+    launches_phase.update(slam_multi=p17["launches"], vo_multi=p17["vo_launches"])
 
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s; {phase_seconds()}")
     (dk, ek), (dp, ep) = times["frame"], times["frame_plain"]

@@ -1,8 +1,9 @@
 """rgbdslam-torch: the PyTorch port's command line.
 
 Port of ``rgbdslam_v2_tpu/apps/cli.py`` (``run``, ``synthetic``, ``ate``,
-``rpe`` and ``params``; reference ros_service_ui.cpp:55-122 and the offline
-batch evaluation, openni_listener.cpp:431):
+``rpe``, ``params``, ``vo-multi`` and ``slam-multi``; reference
+ros_service_ui.cpp:55-122 and the offline batch evaluation,
+openni_listener.cpp:431, test/run_tests.sh):
 
   run        process a TUM directory, a ROS bag (RGB-D images, or a
              PointCloud2 topic with -p topic_points), a directory of
@@ -15,11 +16,18 @@ batch evaluation, openni_listener.cpp:431):
              rectified stereo pairs
   ate, rpe   a trajectory file against ground truth
   params     every parameter with its default and doc
+  vo-multi   visual odometry of many TUM directories at once, sharded over
+             the devices: per-sequence ATE and RANSAC success rate
+  slam-multi full SLAM of many TUM directories in lockstep, sharded over the
+             devices, and the 5-level protocol of each: trajectory files and
+             slam_multi_report.json
 
 Parameters are repeated ``-p name=value`` (the JAX package's names). The
-pipeline runs on the CUDA card unless ``--device cpu`` is given. Inputs and
-outputs the port does not have yet exit with code 2 and name the ROADMAP
-Queue 1 item that brings them.
+pipeline runs on the CUDA card unless ``--device cpu`` is given; the multi
+commands take ``--devices``: ``auto`` (or ``default``) for every CUDA card,
+``cpu:N`` for N CPU shards, and exit with code 2 where there is no card.
+Inputs and outputs the port does not have yet exit with code 2 and name the
+ROADMAP Queue 1 item that brings them.
 """
 from __future__ import annotations
 
@@ -203,6 +211,136 @@ def cmd_rpe(args) -> int:
     return 0
 
 
+def _devices_mesh(spec: str):
+    """--devices: "auto" / "default" -> every CUDA card (ValueError where
+    there is none); "cpu" or "cpu:N" -> N CPU shards (8 without N)."""
+    from ..parallel import candidate_mesh
+
+    if spec.startswith("cpu"):
+        return candidate_mesh(int(spec.split(":")[1]) if ":" in spec else 8, platform="cpu")
+    if spec not in ("auto", "default"):
+        raise ValueError(f"--devices {spec!r}: auto, default, cpu or cpu:N")
+    return candidate_mesh(None)
+
+
+def _tum_frames(args):
+    """The TUM directories of a multi command and the frames they share:
+    (datasets, T)."""
+    from ..io.tum import TumDataset
+
+    datasets = [TumDataset.open(d) for d in args.tum_dirs]
+    T = min(len(ds) for ds in datasets)
+    if args.max_frames:
+        T = min(T, args.max_frames)
+    return datasets, T
+
+
+def cmd_vo_multi(args) -> int:
+    """Visual odometry of S sequences at once, one contiguous block of
+    sequences a device (parallel/multi_eval.py); per-sequence ATE out."""
+    import numpy as np
+
+    from ..config import ParameterServer
+    from ..eval.ate import evaluate_ate
+    from ..models.orb import OrbExtractor
+    from ..parallel.multi_eval import vo_trajectories_sharded
+
+    mesh = _devices_mesh(args.devices)
+    params = ParameterServer.from_cli(args.param or [])
+    cam = _cam_from_args(args, params)
+    datasets, T = _tum_frames(args)
+    grays, depths, all_stamps = [], [], []
+    luma = np.array([0.299, 0.587, 0.114], np.float32)
+    for ds in datasets:
+        g, d, st = [], [], []
+        for i in range(T):
+            ts, rgb, depth = ds.load(i)
+            g.append((np.asarray(rgb, np.float32) @ luma) / 255.0)
+            d.append(np.asarray(depth, np.float32))
+            st.append(ts)
+        grays.append(np.stack(g))
+        depths.append(np.stack(d))
+        all_stamps.append(st)
+    n_dev = mesh.size
+    S = len(datasets)
+    pad = (-S) % n_dev  # pad shards repeat the last sequence
+    res = vo_trajectories_sharded(
+        mesh, grays + [grays[-1]] * pad, depths + [depths[-1]] * pad, 0,
+        OrbExtractor(max_keypoints=params["max_keypoints"]), cam,
+        n_hypotheses=params["ransac_iterations"], min_inliers=params["min_matches"],
+        sigma_depth=params["sigma_depth"])
+    poses = res.poses.cpu().numpy()[:S]
+    ok = res.ok.cpu().numpy()
+    report = {"devices": n_dev, "sequences": {}}
+    for s, ds in enumerate(datasets):
+        entry = {"frames": T, "ransac_success_rate": float(ok[s].mean())}
+        if ds.groundtruth is not None:
+            try:
+                entry["ate_rmse"] = evaluate_ate(all_stamps[s], poses[s][:, :3, 3],
+                                                 ds.groundtruth[:, 0].tolist(),
+                                                 ds.groundtruth[:, 1:4]).rmse
+            except ValueError:
+                pass
+        report["sequences"][str(ds.root)] = entry
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_slam_multi(args) -> int:
+    """Full SLAM of S sequences in lockstep, sharded over the devices
+    (parallel/slam_multi.py): the device step, the pose graph with its
+    online optimize and the 5-level protocol of every sequence, the batched
+    counterpart of the reference's per-bag runs (test/run_tests.sh:21-76)."""
+    import numpy as np
+
+    from ..config import ParameterServer
+    from ..io.tum import write_trajectory
+    from ..parallel.slam_multi import MultiSequenceSlam
+
+    mesh = _devices_mesh(args.devices)
+    params = ParameterServer.from_cli(args.param or [])
+    cam = _cam_from_args(args, params)
+    datasets, T = _tum_frames(args)
+    n_dev = mesh.size
+    S = len(datasets)
+    pad = (-S) % n_dev
+    ms = MultiSequenceSlam(cam, S + pad, params=params, mesh=mesh if n_dev > 1 else None,
+                           device=mesh.devices[0])
+    stamps = [[] for _ in range(S)]
+    for k in range(T):
+        cpts, ts = [], []
+        for s, ds in enumerate(datasets):
+            t, rgb, depth = ds.load(k)
+            stamps[s].append(t)
+            cpts.append(ms.compact(rgb, depth))
+            ts.append(t)
+        # pad shards replay the last sequence; add_frames runs the online
+        # optimize on GraphManager's schedule
+        ms.add_frames(np.stack(cpts + [cpts[-1]] * pad), np.asarray(ts + [ts[-1]] * pad))
+    gt_stamps = gt_xyz = None
+    if all(ds.groundtruth is not None for ds in datasets):
+        gt_stamps = [ds.groundtruth[:, 0].tolist() for ds in datasets]
+        gt_xyz = [ds.groundtruth[:, 1:4] for ds in datasets]
+        gt_stamps += [gt_stamps[-1]] * pad
+        gt_xyz += [gt_xyz[-1]] * pad
+    levels, ate = ms.evaluation_protocol(gt_stamps=gt_stamps, gt_xyz=gt_xyz)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    report = {"devices": n_dev, "frames": T, "sequences": {}}
+    stats = ms.statistics()
+    for s, ds in enumerate(datasets):
+        name = f"seq{s}_" + (Path(str(ds.root)).name or "")
+        for level, poses in levels.items():
+            write_trajectory(out / f"{name}_estimate_iteration_{level}.txt", stamps[s], poses[s])
+        entry = dict(stats[s])
+        if ate:
+            entry["ate_rmse"] = {str(lv): float(ate[lv][s]) for lv in sorted(ate)}
+        report["sequences"][name] = entry
+    (out / "slam_multi_report.json").write_text(json.dumps(report, indent=2))
+    print(json.dumps(report, indent=2))
+    return 0
+
+
 def cmd_params(args) -> int:
     from ..config import PARAM_DEFS
 
@@ -274,6 +412,28 @@ def build_parser() -> argparse.ArgumentParser:
         sp.set_defaults(fn=fn)
 
     sub.add_parser("params", help="list parameters").set_defaults(fn=cmd_params)
+
+    vmp = sub.add_parser("vo-multi",
+                         help="sharded multi-sequence visual odometry (sequences over devices)")
+    vmp.add_argument("tum_dirs", nargs="+")
+    vmp.add_argument("--devices", default="default",
+                     help="'default' / 'auto' (every CUDA card) or 'cpu:N' CPU shards")
+    vmp.add_argument("--camera", default="default")
+    vmp.add_argument("--max-frames", type=int, default=None)
+    vmp.add_argument("-p", "--param", action="append", metavar="K=V")
+    vmp.set_defaults(fn=cmd_vo_multi)
+
+    smp = sub.add_parser("slam-multi",
+                         help="multi-sequence FULL SLAM in lockstep (graph + loop closures + "
+                              "5-level protocol), sharded over the devices")
+    smp.add_argument("tum_dirs", nargs="+")
+    smp.add_argument("--out", default="slam_multi_out")
+    smp.add_argument("--devices", default="auto",
+                     help="'auto' / 'default' (every CUDA card) or 'cpu:N' CPU shards")
+    smp.add_argument("--camera", default="default")
+    smp.add_argument("--max-frames", type=int, default=None)
+    smp.add_argument("-p", "--param", action="append", metavar="K=V")
+    smp.set_defaults(fn=cmd_slam_multi)
     return ap
 
 

@@ -296,61 +296,56 @@ _COUNTED = (detect, alignment, registration)
 
 
 class _Captured:
-    """One captured n-frame step: static inputs, graph, static outputs and
-    the kernel launches one replay makes."""
+    """One captured step: its static input buffer, graph, static output
+    and the kernel launches one replay makes."""
 
-    def __init__(self, flat: torch.Tensor, inputs: GroupInputs):
+    def __init__(self, flat: torch.Tensor):
         self.flat = flat
-        self.inputs = inputs
         self.graph = torch.cuda.CUDAGraph()
         self.out: torch.Tensor = None
         self.launches = (0,) * len(_COUNTED)  # a replay's, as _COUNTED
 
 
-class StepGraph:
-    """slam_stepN on the card as CUDA graphs, one per step_key (n, FAST
-    threshold, wire length, step options); SIFT has no FAST threshold (None
-    in the key). Under the delta wire `wire` is the manager's pair of code
-    tensors, which every replay reads and overwrites.
-
-    The first group of a key runs eagerly, on a side stream between two
+class CapturedSteps:
+    """Step bodies on the card as CUDA graphs, one per key. The first call
+    of a key runs its body eagerly, on a side stream between two
     synchronisations: it warms every lazily built constant and library
-    handle. The second is captured (the RANSAC generator registered with
-    the graph, so a replay draws what the eager steps would) and replayed;
-    every later one copies its inputs into the static buffer (one
-    host->device copy from pinned memory) and replays. A capture that fails
-    raises: there is no eager fallback on the card. A replay adds the
-    kernel launches its capture recorded to those kernels' launch counts."""
+    handle. The second is captured (every generator in `generators`
+    registered with the graph, so a replay draws from each what the eager
+    steps would) and replayed; every later one copies its inputs into the
+    static buffer (one host->device copy from pinned memory) and replays.
+    A capture that fails raises: there is no eager fallback on the card. A
+    replay adds the kernel launches its capture recorded to those kernels'
+    launch counts."""
 
-    def __init__(self, store: NodeStore, graph: GraphState, generator: torch.Generator,
-                 wire=None):
-        self.store, self.graph, self.generator, self.wire = store, graph, generator, wire
+    def __init__(self, device: torch.device, generators):
+        self.device = device
+        self.generators = list(generators)
         self._seen = set()
         self._graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
         self.replays = 0
         self.eager_groups = 0
         self.replay_s = 0.0  # host seconds inside replay calls (graph launches)
+        self.capture_s = 0.0  # host seconds inside captures
 
-    def run(self, host_flat: torch.Tensor, n: int, L: int, B: int, cfg: dict) -> torch.Tensor:
-        """Run one group whose inputs are `host_flat` (pack_group, pinned);
-        returns its (n, 4B+2) summaries in a tensor of their own."""
-        dev = self.store.uv.device
-        key = step_key(n, L, cfg, self.wire)
+    def launch(self, key: tuple, host_flat: torch.Tensor, body) -> torch.Tensor:
+        """body(flat) on a device copy of `host_flat` (pinned): eagerly,
+        captured or replayed, as the key has been seen; returns its output
+        in a tensor of its own."""
         cap = self._graphs.get(key)
         if cap is None and key not in self._seen:
             self._seen.add(key)
             self.eager_groups += 1
-            flat = host_flat.to(dev, non_blocking=True)
-            side = torch.cuda.Stream(dev)
-            torch.cuda.synchronize(dev)
+            flat = host_flat.to(self.device, non_blocking=True)
+            side = torch.cuda.Stream(self.device)
+            torch.cuda.synchronize(self.device)
             with torch.cuda.stream(side):
-                out = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
-                                 self.generator, self.wire, **cfg)
-            torch.cuda.synchronize(dev)
+                out = body(flat)
+            torch.cuda.synchronize(self.device)
             return out
         if cap is None:
-            cap = self._capture(key, host_flat, n, L, B, cfg)
+            cap = self._capture(key, host_flat, body)
         cap.flat.copy_(host_flat, non_blocking=True)
         t0 = time.perf_counter()
         cap.graph.replay()
@@ -360,11 +355,11 @@ class StepGraph:
             mod.LAUNCHES += n_launches
         return cap.out.clone()
 
-    def _capture(self, key, host_flat, n, L, B, cfg) -> _Captured:
-        dev = self.store.uv.device
-        flat = torch.empty(host_flat.shape, dtype=torch.uint8, device=dev)
-        cap = _Captured(flat, group_views(flat, n, L, B))
-        cap.graph.register_generator_state(self.generator)
+    def _capture(self, key, host_flat, body) -> _Captured:
+        t0 = time.perf_counter()
+        cap = _Captured(torch.empty(host_flat.shape, dtype=torch.uint8, device=self.device))
+        for gen in self.generators:
+            cap.graph.register_generator_state(gen)
         counts = [mod.LAUNCHES for mod in _COUNTED]
         # Dead reference cycles (an earlier pipeline, say) hold device and
         # pinned host tensors; a collection inside the capture frees them
@@ -375,8 +370,7 @@ class StepGraph:
         gc.disable()
         try:
             with torch.cuda.graph(cap.graph):
-                cap.out = slam_stepN(self.store, self.graph, cap.inputs, self.generator,
-                                     self.wire, **cfg)
+                cap.out = body(cap.flat)
         finally:
             if gc_on:
                 gc.enable()
@@ -386,4 +380,25 @@ class StepGraph:
                 mod.LAUNCHES = c
         self._graphs[key] = cap
         self.captures += 1
+        self.capture_s += time.perf_counter() - t0
         return cap
+
+
+class StepGraph(CapturedSteps):
+    """slam_stepN on the card as CUDA graphs, one per step_key (n, FAST
+    threshold, wire length, step options); SIFT has no FAST threshold (None
+    in the key). Under the delta wire `wire` is the manager's pair of code
+    tensors, which every replay reads and overwrites."""
+
+    def __init__(self, store: NodeStore, graph: GraphState, generator: torch.Generator,
+                 wire=None):
+        super().__init__(store.uv.device, [generator])
+        self.store, self.graph, self.generator, self.wire = store, graph, generator, wire
+
+    def run(self, host_flat: torch.Tensor, n: int, L: int, B: int, cfg: dict) -> torch.Tensor:
+        """Run one group whose inputs are `host_flat` (pack_group, pinned);
+        returns its (n, 4B+2) summaries in a tensor of their own."""
+        return self.launch(
+            step_key(n, L, cfg, self.wire), host_flat,
+            lambda flat: slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
+                                    self.generator, self.wire, **cfg))

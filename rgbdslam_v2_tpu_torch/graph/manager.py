@@ -83,6 +83,13 @@ Under ``tpu_wire_delta`` the host encodes a frame when it is dispatched
 the device's codes while the chain is unbroken, else an I wire; frames
 off the fast path, a checkpoint load and the first frame break the chain.
 
+With ``tpu_mesh_devices`` > 1 the host-decision path's comparisons shard
+their candidates over that many devices (``parallel.sharded``, JAX
+``_compare_dispatch``). ``parallel.slam_multi.MultiSequenceSlam`` runs a
+GraphManager per sequence over views of its stacked tensors (``state=``)
+and drives its keep-all halves, ``_frame_inputs`` and ``_frames_queued``,
+around one lockstep step.
+
 Configuration outside the port raises NotImplementedError.
 """
 from __future__ import annotations
@@ -177,7 +184,6 @@ def check_slice(p: ParameterServer) -> None:
         "tpu_edge_info": p["tpu_edge_info"] not in ("scalar", "hessian"),
         "tpu_approx_select": p["tpu_approx_select"],
         "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] not in DESC_DTYPES,
-        "tpu_mesh_devices": p["tpu_mesh_devices"] > 1,
         "start_paused": p["start_paused"],
     }
     bad = [k for k, v in refused.items() if v]
@@ -236,11 +242,25 @@ def _inaffected_kernel(graph: GraphState, gi, ge, li, lj, nfix, nact, eact, free
 
 class GraphManager:
     def __init__(self, cam: Intrinsics, params: Optional[ParameterServer] = None,
-                 device=None, extractor=None):
+                 device=None, extractor=None, state=None):
+        """state: a (NodeStore, GraphState) pair to keep the graph in
+        instead of allocating one (a sequence of
+        parallel.slam_multi.MultiSequenceSlam: views of its stacked
+        tensors, on `device`, whose steps the caller runs)."""
         self.params = params or default_params()
         p = self.params
         check_slice(p)
         self.device = backend.resolve_device(device)
+        # tpu_mesh_devices > 1: the host-decision path's comparisons shard
+        # their candidates over a mesh of that many devices of this
+        # manager's kind (CPU shards on the CPU, else the first cards;
+        # ValueError where there are fewer)
+        self.mesh = None
+        if p["tpu_mesh_devices"] > 1 and state is None:
+            from ..parallel.mesh import candidate_mesh
+
+            self.mesh = candidate_mesh(p["tpu_mesh_devices"],
+                                       platform="cpu" if self.device.type == "cpu" else None)
         self.cam = cam
         self.n_cap = p["tpu_max_nodes"]
         self.e_cap = p["tpu_max_edges"]
@@ -258,11 +278,14 @@ class GraphManager:
         self.extractor = extractor or make_extractor(p, self.k_cap)
         # the adaptive FAST ladder's base; None for SIFT, which has no FAST
         self._base_threshold = getattr(self.extractor, "fast_threshold", None)
-        desc_dim, desc_dtype = descriptor_layout(self.extractor, p)
-        self.store = NodeStore.create(
-            self.n_cap, self.k_cap, desc_dim, self.cam_small.height, self.cam_small.width,
-            store_color=p["store_pointclouds"], device=self.device, desc_dtype=desc_dtype)
-        self.graph = make_graph_state(self.n_cap, self.e_cap, device=self.device)
+        if state is None:
+            desc_dim, desc_dtype = descriptor_layout(self.extractor, p)
+            self.store = NodeStore.create(
+                self.n_cap, self.k_cap, desc_dim, self.cam_small.height, self.cam_small.width,
+                store_color=p["store_pointclouds"], device=self.device, desc_dtype=desc_dtype)
+            self.graph = make_graph_state(self.n_cap, self.e_cap, device=self.device)
+        else:
+            self.store, self.graph = state
         self.host = HostGraph(self.e_cap, p, p["tpu_seed"])
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(p["tpu_seed"]))
@@ -324,7 +347,7 @@ class GraphManager:
         self.retrievals = 0
         self.retrieval_hits = 0
         self.step_graph = (StepGraph(self.store, self.graph, self.generator, self.wire_state)
-                           if self.device.type == "cuda" else None)
+                           if self.device.type == "cuda" and state is None else None)
 
     def set_odometry_provider(self, provider) -> None:
         """Attach an OdometryProvider (use_robot_odom, use_robot_odom_only)."""
@@ -482,7 +505,17 @@ class GraphManager:
 
     # ---- host-decision path ----------------------------------------------
     def _compare_dispatch(self, kp, depth_small, cand_idx: torch.Tensor) -> CompareResult:
-        """Matching, RANSAC and EMM of the new frame against B stored nodes."""
+        """Matching, RANSAC and EMM of the new frame against B stored nodes;
+        with a mesh (tpu_mesh_devices > 1) whose size divides B, the
+        candidates shard over it (parallel.sharded.sharded_compare, JAX
+        _compare_dispatch)."""
+        if self.mesh is not None and self.cand_batch % self.mesh.size == 0:
+            from ..parallel.sharded import sharded_compare
+
+            return sharded_compare(
+                self.mesh, kp, depth_small, self.store, cand_idx, self.generator,
+                self.cam_small, cam_fx=self.cam.fx, cam_fy=self.cam.fy, cam_cx=self.cam.cx,
+                cam_cy=self.cam.cy, **self._compare_kwargs())
         return compare_to_candidates(
             kp, depth_small, self.store, cand_idx, self.generator, self.cam_small,
             cam_fx=self.cam.fx, cam_fy=self.cam.fy, cam_cx=self.cam.cx, cam_cy=self.cam.cy,
@@ -705,6 +738,34 @@ class GraphManager:
                                 [self.n_nodes + k for k in range(n)])
 
     def _add_frames_device(self, compacts, tss, ids) -> None:
+        B, n = self.cand_batch, len(ids)
+        compacts, host_flat, slots, e_starts, L = self._frame_inputs(
+            compacts, tss, ids, pin=self.device.type == "cuda")
+        if self.step_graph is not None and n > 1:
+            sums = self.step_graph.run(host_flat, n, L, B, self._step_cfg())
+        else:
+            flat = host_flat.to(self.device, non_blocking=True)
+            sums = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
+                              self.generator, self.wire_state, **self._step_cfg())
+        if self.wire_delta:
+            self._wire_synced = True
+        self._step_calls += 1
+        if self.device.type == "cuda":
+            self._step_done = torch.cuda.Event()
+            self._step_done.record()
+        if self.params["tpu_drain_pipelined"]:
+            rows = list(sums)  # copied at the drain, stacked
+        else:
+            host, event = self._start_copy(sums)
+            rows = [(host[k], event) for k in range(n)]
+        self._frames_queued(compacts, tss, ids, slots, e_starts, rows)
+
+    def _frame_inputs(self, compacts, tss, ids, pin: bool):
+        """Before the step of frames `ids`: their candidate slots (frame k
+        selected against host state holding frames < k), their edge slots
+        reserved, and the step's inputs packed into one flat host buffer
+        (pinned when `pin`). Returns (compacts as the step takes them,
+        buffer, slots, first edge slots, wire length)."""
         p = self.params
         B = self.cand_batch
         n = len(ids)
@@ -730,27 +791,18 @@ class GraphManager:
         if self.wire_delta:
             compacts, intra = self._delta_wires(compacts)
         wires = np.stack(compacts)
-        L = wires.shape[1]
-        cuda = self.device.type == "cuda"
         host_flat = pack_group(wires, ids, [s[0] for s in slots], [s[1] for s in slots],
-                               [s[2] for s in slots], e_starts, pin=cuda, intra=intra)
-        if self.step_graph is not None and n > 1:
-            sums = self.step_graph.run(host_flat, n, L, B, self._step_cfg())
-        else:
-            flat = host_flat.to(self.device, non_blocking=True)
-            sums = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
-                              self.generator, self.wire_state, **self._step_cfg())
-        if self.wire_delta:
-            self._wire_synced = True
-        self._step_calls += 1
-        if cuda:
-            self._step_done = torch.cuda.Event()
-            self._step_done.record()
-        if p["tpu_drain_pipelined"]:
-            rows = list(sums)  # copied at the drain, stacked
-        else:
-            host, event = self._start_copy(sums)
-            rows = [(host[k], event) for k in range(n)]
+                               [s[2] for s in slots], e_starts, pin=pin, intra=intra)
+        return compacts, host_flat, slots, e_starts, wires.shape[1]
+
+    def _frames_queued(self, compacts, tss, ids, slots, e_starts, rows) -> None:
+        """After the step of frames `ids` is queued (and counted in
+        _step_calls): their summaries `rows` pend for a drain, the host
+        learns the frames, and the retrieval, the starvation alert, the
+        drains and the online optimize run as their rules say."""
+        p = self.params
+        h = self.host
+        n = len(ids)
         for k in range(n):
             self._pending.append((ids[k], slots[k][0], e_starts[k], rows[k]))
             h.n_nodes += 1

@@ -1,15 +1,17 @@
 """Batch evaluation: many sequences and parameter sets -> CSV and plots.
 
 Port of ``rgbdslam_v2_tpu/pipeline/batch_eval.py`` (``SequenceResult``,
-``evaluate_sequences``, ``write_summary_csv``, ``plot_summary``), the
+``evaluate_sequences``, ``evaluate_sequences_sharded``,
+``write_summary_csv``, ``plot_summary``), the
 capability of the reference's evaluation tooling:
   test/run_tests.sh          (run the binary over every sequence with
                               parameter sweeps)
   rgbd_benchmark/summarize_evaluation.sh (per-sequence ATE at optimization
                               levels 0-4, runtime, node and edge counts -> CSV)
   test/figures.py            (plots over the collected ATE results)
-as one host-side driver over SlamPipeline. Its sharded variant over a
-device mesh waits for ROADMAP Queue 1 item 28.
+as one host-side loop over SlamPipeline; ``evaluate_sequences_sharded``
+runs the visual-odometry frontend of many sequences at once over a device
+mesh (parallel/multi_eval.py).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import ParameterServer
 from ..core.camera import Intrinsics
@@ -80,6 +83,60 @@ def evaluate_sequences(
     write_summary_csv(out / "summary.csv", results)
     (out / "summary.json").write_text(json.dumps([dataclasses.asdict(r) for r in results],
                                                  indent=2))
+    return results
+
+
+def evaluate_sequences_sharded(
+    sequences: Sequence,  # (name, grays (T, H, W), depths (T, H, W), gt_poses) tuples
+    cam: Intrinsics,
+    params: Optional[ParameterServer] = None,
+    out_dir="eval_out_sharded",
+    device=None,
+) -> List[SequenceResult]:
+    """The sequential-VO frontend of every sequence at once, the sequences
+    sharded over a tpu_mesh_devices-wide mesh (parallel/multi_eval.py):
+    CPU shards where ``device`` is "cpu", else that many CUDA cards. The
+    batch is padded to a multiple of the mesh size with copies of the first
+    sequence. Writes summary.csv with each sequence's ATE (level 0, against
+    its ground truth from the first frame's pose) and its successful
+    registrations as edges. The throughput path for frontend sweeps;
+    evaluate_sequences runs the full protocol."""
+    from ..eval.ate import evaluate_ate
+    from ..graph.manager import make_extractor
+    from ..parallel import candidate_mesh, vo_trajectories_sharded
+
+    params = params or ParameterServer()
+    n_dev = params["tpu_mesh_devices"]
+    cpu = device is not None and torch.device(device).type == "cpu"
+    mesh = candidate_mesh(n_dev, platform="cpu" if cpu else None)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    names = [s[0] for s in sequences]
+    grays = [np.asarray(s[1], np.float32) for s in sequences]
+    depths = [np.asarray(s[2], np.float32) for s in sequences]
+    gts = [s[3] for s in sequences]
+    pad = (-len(sequences)) % n_dev
+    grays += [grays[0]] * pad
+    depths += [depths[0]] * pad
+    res = vo_trajectories_sharded(
+        mesh, grays, depths, params["tpu_seed"],
+        make_extractor(params, params["max_keypoints"]), cam,
+        max_matches=min(params["max_matches"], params["max_keypoints"]),
+        ratio=params["nn_distance_ratio"], n_hypotheses=params["ransac_iterations"],
+        min_inliers=params["min_matches"], sigma_depth=params["sigma_depth"])
+    poses_all = res.poses.cpu().numpy()
+    ok = res.ok.cpu().numpy()
+    results: List[SequenceResult] = []
+    for i, name in enumerate(names):
+        T = poses_all[i]
+        stamps = np.arange(T.shape[0]) / 30.0
+        ate = float("nan")
+        if gts[i] is not None:
+            ate = evaluate_ate(stamps, T[:, :3, 3], stamps, np.asarray(gts[i])[:, :3, 3]).rmse
+        results.append(SequenceResult(name=name, config="vo_sharded", ate_by_level={0: ate},
+                                      duration_s=0.0, fps=0.0, nodes=T.shape[0],
+                                      edges=int(ok[i].sum())))
+    write_summary_csv(out / "summary.csv", results)
     return results
 
 

@@ -17,8 +17,10 @@ equal eager steps. With the appearance retrieval (global_loop_candidates):
 replayed groups make no synchronizing call and equal the eager groups bit
 for bit, the default path reads the card once more on a frame that
 retrieves, and the chunked retrieval equals its plain version on the card;
-the stereo disparity on the card equals the CPU's. Imports no JAX, so it
-runs on the card:
+the stereo disparity on the card equals the CPU's. MultiSequenceSlam's
+lockstep frames replayed as one CUDA graph equal the same frames stepped
+eagerly bit for bit, with no synchronizing call in a replayed frame.
+Imports no JAX, so it runs on the card:
 
     python -m pytest --noconftest tests/test_torch_manager.py -q
 """
@@ -36,6 +38,7 @@ from rgbdslam_v2_tpu_torch.graph.device_step import group_views, slam_stepN
 from rgbdslam_v2_tpu_torch.io import SyntheticWorld, render_sequence
 from rgbdslam_v2_tpu_torch.io.synthetic import dark_stretch
 from rgbdslam_v2_tpu_torch.ops import detect, registration
+from rgbdslam_v2_tpu_torch.parallel.slam_multi import MultiSequenceSlam
 from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
 
 torch.set_num_threads(1)
@@ -609,3 +612,60 @@ def test_stereo_disparity_on_the_card_equals_the_cpu():
     assert float(host[1].float().mean()) > 0.3
     for a, b in zip(card, host):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_multi_sequence_replay_equals_eager():
+    """MultiSequenceSlam, 3 sequences of bench.py's configuration with 4
+    candidates and no online optimize in the run (pose_relative_to forced
+    to "first"), 14 lockstep frames of 640x480: the frames replayed as one
+    CUDA graph of the 3 step bodies equal the same frames stepped eagerly
+    bit for bit (poses, edge mirrors, keyframes). A replayed lockstep frame
+    makes no synchronizing call; detect launches 3 times a frame and refine
+    3 times a frame after the first, replays included. A new key (a
+    sequence's adapted FAST threshold) runs eagerly once and is captured."""
+    S, frames = 3, 14
+    seqs = []
+    for s in range(S):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        world = SyntheticWorld.create(seed=s, cam=TUM_DEFAULT)
+        poses, rgbs, depths = render_sequence(world, frames, seed=10 + s, device="cuda")
+        seqs.append((poses, rgbs, np.clip(depths * 5000.0 + 0.5, 0, 65535).astype(np.uint16)))
+    runs = {}
+    for eager in (False, True):
+        ms = MultiSequenceSlam(TUM_DEFAULT, S, params=ParameterServer(
+            {**BENCH, "tpu_candidate_batch": 4, "optimizer_skip_step": 100,
+             "tpu_frames_per_step": 1}))
+        if eager:
+            for sh in ms.shards:
+                sh.steps = None
+        wires = [[ms.compact(r, d) for r, d in zip(x[1], x[2])] for x in seqs]
+        detect.reset_launches()
+        registration.reset_launches()
+        sites, steps = [], ms.shards[0].steps
+        for k in range(frames):
+            before = steps and (steps.captures, steps.eager_groups)
+            frame_sites = _sync_sites(lambda: ms.add_frames(
+                np.stack([w[k] for w in wires]), np.full(S, k / 30.0),
+                gt_poses=np.stack([x[0][0] for x in seqs]) if k == 0 else None))
+            if k > 0 and steps and (steps.captures, steps.eager_groups) == before:
+                sites.append(frame_sites)  # a replayed lockstep frame
+        launches = (detect.LAUNCHES, registration.LAUNCHES)
+        ms._drain()
+        runs[eager] = (ms.trajectories(), [(sq.host.edge_active.copy(), sq.host.edge_i.copy(),
+                                            list(sq.host.keyframes)) for sq in ms.seq],
+                       launches, sites, ms.shards[0].steps)
+    (p_g, h_g, l_g, sites, steps), (p_e, h_e, l_e, _, _) = runs[False], runs[True]
+    # a key (every sequence's FAST threshold) runs eagerly, then is captured
+    # and replayed on its next frame; every frame after the first steps once
+    assert steps.eager_groups == steps.captures >= 1
+    assert steps.eager_groups + steps.replays == frames - 1
+    assert len(sites) == steps.replays - steps.captures >= frames - 7
+    assert all(not s for s in sites), sites
+    assert l_g == l_e == (S * frames, S * (frames - 1))
+    np.testing.assert_array_equal(p_g, p_e)
+    for (a_g, i_g, k_g), (a_e, i_e, k_e) in zip(h_g, h_e):
+        np.testing.assert_array_equal(a_g, a_e)
+        np.testing.assert_array_equal(i_g, i_e)
+        assert k_g == k_e
