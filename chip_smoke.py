@@ -152,7 +152,7 @@ and prints no result:
      and a cloud with points), the ate subcommand within 1e-6 m of the
      report's L4 (the file rounds to 1e-7 m); the voxel map of VOXEL_NODES
      node clouds on the card equal to the CPU's; the default configuration
-     through the CLI on DEFAULT_FRAMES frames (L4 at most
+     through the CLI on TUM_DEFAULT_FRAMES frames (L4 at most
      DEFAULT_ATE_L4_MAX); a checkpoint after CHECKPOINT_AT frames loaded
      into a fresh pipeline, both fed CHECKPOINT_MORE more frames, once
      with no online optimize (poses and statistics equal) and once with it
@@ -233,7 +233,7 @@ and prints no result:
      frames, 4 a step replayed against the same groups eager (poses
      equal exactly, hits taken); plain make_pipe against it with
      retrieval, fps in clean processes (tools/make_pipe_fps.py,
-     RETRIEVAL_FPS_FRAMES frames, alternating); default_params() with
+     RETRIEVAL_FPS_FRAMES frames, one run each); default_params() with
      retrieval on HOST_FRAMES frames (a frame synchronizes once in
      graph/manager.py and once more a retrieval in loop_closing.py, L4
      within max(1.5 x, + 5 mm) of HOST_RETRIEVAL_L4_JAX); default_params()
@@ -252,14 +252,17 @@ and prints no result:
      640x480 frames, each on its own world (render_multi), through
      MultiSequenceSlam with make_pipe's parameters (multi_params: its
      pose_relative_to set to "first" as the UNSUPPORTED contract sets it)
-     and its 5-level protocol: every L4 at most MULTI_L4_MAX; detect S a
+     and its 5-level protocol, optimized online every optimizer_skip_step
+     lockstep frames as the slam-multi CLI does: every L4 at most
+     MULTI_L4_MAX; detect S a
      lockstep frame, refine S a frame after the first, Kabsch 0; 0
-     synchronizing calls in replayed lockstep frames (every key: one
+     synchronizing calls in replayed lockstep frames (one key: one
      eager frame, one capture); host ms a replayed frame (whole call,
-     graph replay, drains), capture s, graph-pool MiB, state and peak MiB
-     a sequence. Sequences MULTI_SINGLE alone through GraphManager with
-     tpu_seed i on the same wires (add_frame): equal edge mirrors, edge
-     types and keyframes, L0 and L4 within MULTI_SINGLE_TOL. Without
+     graph replay, drains, online optimizes), capture s, graph-pool MiB,
+     state and peak MiB a sequence. Sequences MULTI_SINGLE alone through
+     MultiSequenceSlam with S = 1 and tpu_seed i on the same wires (F25:
+     a sequence of S computes what one alone does): equal edge mirrors,
+     edge types and keyframes, L0 and L4 within MULTI_SINGLE_TOL. Without
      online optimizes, MULTI_EQUAL_FRAMES frames: the replayed lockstep
      graph equals eager steps and a 2-shard mesh on the one card equals
      mesh=None, bitwise. sharded_compare over that mesh equals the
@@ -273,6 +276,30 @@ and prints no result:
      (tools/slam_multi_fps.py, tools/make_pipe_fps.py): sequence-frames/s
      against S x make_pipe's fps on sequence 0, and a torch.profiler
      window's device ms and busy share a lockstep frame.
+ 18. the live viewer and the run controls (ROADMAP item 27b): `rgbdslam-torch
+     run --tum-dir --serve 0` with make_pipe's parameters on SERVE_FRAMES
+     frames of phase 12's Up directory, in this process, driven over HTTP
+     from a thread of its own at fixed frames (SERVE_SCRIPT; the run loop
+     waits while each request lands): /ctl/save (cloud.pcd at the next
+     refresh), /ctl/pause (the SERVE_DROPPED frames dropped: no detect or
+     refine launch, no counter moves), /ctl/step (exactly one frame, one
+     launch of each), /ctl/pause again (running), and
+     /ctl/param?name=observability_threshold&value=1.0 at frame
+     SERVE_PARAM_AT: one new CUDA-graph key (one eager group, one capture)
+     with no synchronizing call in the replayed groups after it, and every
+     later frame entering by its constant-position edge alone. The same
+     run stepped eagerly (no CUDA graph) with the same controls: edge
+     mirrors equal, poses within SERVE_POSE_TOL (the online optimizes'
+     float atomics). The live outputs parse (estimate.txt, graph.g2o,
+     cloud.pcd, frame.png, depth.png) and the page with the controls and
+     the panes is served during the CLI's final linger; `view --html
+     --views 2` writes two 960x720 PNGs and the page; `serve` in a
+     process of its own answers GET /. run_tum's fps with the live view on
+     (live_dir, a server up) and off, alternating after a warm-up run
+     with it on (the first run of the loop has run up to 45% slower),
+     SERVE_FRAMES frames each, with a refresh's ms split into the card reads on the run loop
+     and the files' writing on the worker thread; utils/roofline.py's table of the step's stages (device ms from a
+     torch.profiler trace against the bytes and float32 bounds).
 Phase 2 also holds the refine kernel with its projective stage
 (projective_iterations PROJ_ITERATIONS) to its plain version in float64.
 
@@ -281,8 +308,8 @@ numbers (launches from phase 6's run, the bench configuration, and from
 each later phase's; the Kabsch kernel's are 0 there, its refits having
 moved into the refine kernel; the refine kernel with its projective stage
 has an entry of its own, launched on phase 14's refinement runs); the last
-line is {"ok": true, "device": {...}}. --frames N (at least 23; phase 15's
-F22 check needs 60) shortens phases 3-17 to N frames each.
+line is {"ok": true, "device": {...}}. --frames N (at least SERVE_FRAMES,
+120: phase 18's control sequence) shortens phases 3-17 to N frames each.
 
 bench_params() and render_bench() hold the cell's configuration and data;
 tools/profile_torch_port.py imports them.
@@ -299,6 +326,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -388,21 +416,12 @@ def median_ms(fn, n: int = 20) -> float:
 
 
 def device_ms(fn, n: int = 20):
-    """Mean device time of one call of fn: the summed durations of the device
-    activities (kernels, copies) a torch.profiler trace of n calls records.
-    None when the trace holds no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Mean device ms of one call of fn (utils/roofline.device_ms: the
+    device activities of a torch.profiler trace of n calls); None when no
+    trace holds any."""
+    from rgbdslam_v2_tpu_torch.utils.roofline import device_ms as traced
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start
-             for e in prof.events() if e.device_type.name == "CUDA"]
-    return sum(spans) / n / 1e3 if spans else None
+    return traced(fn, n)
 
 
 def device_ops(fn) -> int:
@@ -519,9 +538,9 @@ MULTI_FRAMES = 120
 MULTI_WORLD_SEED0 = 100
 MULTI_ORBIT_SEED0 = 200
 MULTI_EQUAL_FRAMES = 40  # replay = eager and mesh = no mesh, no online optimize
-MULTI_SINGLE = (0, 7)  # sequences run alone through GraphManager
+MULTI_SINGLE = (0, 7)  # sequences run alone (MultiSequenceSlam with S = 1)
 MULTI_L4_MAX = 0.05  # metres, tests/test_slam_multi.py's bound
-MULTI_SINGLE_TOL = 1e-4  # metres: L0 and L4 of sequence i against the single manager
+MULTI_SINGLE_TOL = 1e-4  # metres: L0 and L4 of sequence i against it alone (float atomics)
 MULTI_PROFILE_FRAMES = 10  # lockstep frames under torch.profiler (tools/slam_multi_fps.py)
 # vo-multi's settings (the JAX CLI's: ORB with max_keypoints, RANSAC with
 # ransac_iterations and min_matches, make_pipe's values), and the JAX
@@ -1095,8 +1114,12 @@ def rescue_item_ms(mgr, nid: int) -> dict:
                 iterations=iters, shape=(src.shape[1], dst.shape[1]))
 
 
-CHECKPOINT_AT, CHECKPOINT_MORE = 260, 60  # phase 12: frames before the save, after it
+# phase 12: frames before the save (at 260 the compressed save of their
+# 83.5 MiB took ~16 s), after it
+CHECKPOINT_AT, CHECKPOINT_MORE = 100, 60
 TUM_FPS_FRAMES = 130  # phase 12: frames of each alternating fps run (once 520, then 260)
+# phase 12: the default configuration's CLI run (phase 5 runs DEFAULT_FRAMES)
+TUM_DEFAULT_FRAMES = 100
 VOXEL_NODES = 10  # phase 12: node clouds inserted on the card and on the CPU
 UNFILTER_FRAMES = 20  # phase 12: Up-filtered frames unfiltered in C and in numpy
 # phase 12: adaptively filtered frames unfiltered in numpy too (its Average
@@ -1402,7 +1425,7 @@ def tum_phase(poses, rgbs, depths, dev, n_default: int, root: Path) -> dict:
     alignment.reset_launches()
     t0 = time.perf_counter()
     code, text, dpipe = run_cli(["run", "--tum-dir", tum, "--out", root / "default",
-                                 "--evaluate", "--max-frames", n_default])
+                                 "--evaluate", "--max-frames", min(n_default, TUM_DEFAULT_FRAMES)])
     out["default_s"] = time.perf_counter() - t0
     out["default_launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
     if code != 0:
@@ -2155,8 +2178,7 @@ def retrieval_replay_vs_eager(poses, rgbs, depths, stamps, dev) -> dict:
 
 def clean_process_fps(poses, rgbs, depths, stamps, root: Path) -> dict:
     """tools/make_pipe_fps.py on the first RETRIEVAL_FPS_FRAMES frames, one
-    process a run: plain make_pipe and make_pipe with RETRIEVAL, in the
-    order plain, retrieval, retrieval, plain."""
+    process a run: plain make_pipe, then make_pipe with RETRIEVAL."""
     import numpy as np
 
     n = min(RETRIEVAL_FPS_FRAMES, len(rgbs))
@@ -2165,7 +2187,7 @@ def clean_process_fps(poses, rgbs, depths, stamps, root: Path) -> dict:
     for name, arr in (("poses", poses), ("rgbs", rgbs), ("depths", depths), ("stamps", stamps)):
         np.save(d / f"{name}.npy", np.ascontiguousarray(arr[:n]))
     out = {"plain": [], "retrieval": [], "frames": n}
-    for name in ("plain", "retrieval", "retrieval", "plain"):
+    for name in ("plain", "retrieval"):
         sets = [x for k, v in RETRIEVAL.items() for x in ("--set", f"{k}={v}")] \
             if name == "retrieval" else []
         r = subprocess.run([sys.executable, str(ROOT / "tools" / "make_pipe_fps.py"), str(d),
@@ -2536,7 +2558,8 @@ def report_phase16(p: dict, frames: int) -> None:
           f"{eq['loop_edges']}")
     f = p["fps"]
     phase(f"[16 retrieval] fps in clean processes (tools/make_pipe_fps.py), {f['frames']} frames, "
-          f"alternating plain / retrieval / retrieval / plain: plain "
+          f"one process each, plain then retrieval (not alternated: an order effect is not "
+          f"separated): plain "
           f"{' / '.join(f'{x['fps']:.2f}' for x in f['plain'])}, global_loop_candidates=2 "
           f"{' / '.join(f'{x['fps']:.2f}' for x in f['retrieval'])} (retrievals "
           f"{[x['retrievals'] for x in f['retrieval']]}, hits "
@@ -2611,19 +2634,22 @@ def render_multi(device, frames: int = MULTI_FRAMES, S: int = MULTI_S) -> list:
 def multi_params(**over):
     """make_pipe's parameters as MultiSequenceSlam runs them: its
     pose_relative_to="inaffected" set to "first" as the UNSUPPORTED
-    contract sets it (here, so that the single managers of the comparison
-    get the same)."""
+    contract sets it (here, so that every run of the comparisons gets the
+    same)."""
     return make_pipe_params(**{"pose_relative_to": "first", **over})
 
 
 def multi_run(seqs, wires, frames: int, mesh=None, eager: bool = False,
               watch: bool = False, params=None) -> dict:
     """MultiSequenceSlam over the first `frames` lockstep frames of the
-    encoded sequences (`wires`, a list a sequence): its trajectories, host
-    mirrors and statistics; with watch, the synchronizing calls of each
-    replayed lockstep frame, host ms a replayed frame (whole call, graph
-    replay, drains), capture seconds, the reserved MiB the capture frame
-    added, peak MiB and the detect/refine/Kabsch launches of the run."""
+    encoded sequences (`wires`, a list a sequence), optimized online every
+    optimizer_skip_step frames as the slam-multi CLI does: its
+    trajectories, host mirrors and statistics; with watch, the
+    synchronizing calls of each replayed lockstep frame, host ms a
+    replayed frame (whole call with its online optimize, graph replay,
+    drains, the optimize), capture seconds, the reserved MiB the capture
+    frame added, peak MiB and the detect/refine/Kabsch launches of the
+    run."""
     import numpy as np
     import torch
     from rgbdslam_v2_tpu_torch.core import alignment
@@ -2636,7 +2662,8 @@ def multi_run(seqs, wires, frames: int, mesh=None, eager: bool = False,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ms = MultiSequenceSlam(TUM_DEFAULT, S, params=params or multi_params(), mesh=mesh)
+    p = params or multi_params()
+    ms = MultiSequenceSlam(TUM_DEFAULT, S, params=p, mesh=mesh)
     if eager:
         for sh in ms.shards:
             sh.steps = None
@@ -2662,11 +2689,13 @@ def multi_run(seqs, wires, frames: int, mesh=None, eager: bool = False,
     with (patched(_SeqManager, "_drain_pending", timed(GraphManager._drain_pending, drain_s)),
           patched(_SeqManager, "_consume_ready_staged",
                   timed(GraphManager._consume_ready_staged, drain_s)),
-          patched(_SeqManager, "optimize", timed(GraphManager.optimize, opt_s))):
+          patched(MultiSequenceSlam, "optimize", timed(MultiSequenceSlam.optimize, opt_s))):
         for k in range(frames):
             def step(k=k):
                 ms.add_frames(np.stack([w[k] for w in wires]), np.full(S, k / 30.0),
                               gt_poses=gt0 if k == 0 else None)
+                if (k + 1) % p["optimizer_skip_step"] == 0:  # the slam-multi CLI's schedule
+                    ms.optimize(iterations=p["online_optimizer_iterations"], blocking=False)
             before, rs0, d0, o0 = state(), sum(sh.steps.replay_s for sh in ms.shards
                                                if sh.steps), drain_s[0], opt_s[0]
             allocated = torch.cuda.memory_allocated()
@@ -2730,23 +2759,6 @@ def unobservable_nodes(mirrors, n: int) -> list:
             out.extend(range(v, w + 1))
         v = w + 1
     return out
-
-
-def manager_protocol(run, gt_stamps, gt_xyz) -> dict:
-    """The 5-level protocol's ATE of a GraphManager, as
-    MultiSequenceSlam.evaluation_protocol runs it: {level: [rmse]}."""
-    from rgbdslam_v2_tpu_torch.eval.ate import evaluate_ate
-
-    p = run.params
-    out = {0: run.poses()}
-    run.optimize(iterations=p["optimizer_iterations"] * 2)
-    out[1] = run.poses()
-    for level, thresh in ((2, p["edge_error_threshold"]), (3, 1.0), (4, 0.25)):
-        run.prune_edges_above(thresh)
-        run.optimize(iterations=p["optimizer_iterations"])
-        out[level] = run.poses()
-    return {lv: [float(evaluate_ate(run.timestamps, poses[:, :3, 3], gt_stamps, gt_xyz).rmse)]
-            for lv, poses in out.items()}
 
 
 def loop_graph(n: int, device, drift: float = 0.002, seed: int = 0):
@@ -2848,7 +2860,7 @@ def phase17(dev, tum_dirs, root: Path, frames: int = MULTI_FRAMES) -> dict:
     del ms0
     lap("render and encode")
 
-    # ---- the main run: 8 sequences, make_pipe, online optimizes ---------
+    # ---- the main run: 8 sequences, make_pipe, the CLI's online optimizes
     run = multi_run(seqs, wires, T, watch=True)
     p["launches"] = run["launches"]
     if run["launches"][:2] != (S * T, S * (T - 1)) or run["launches"][2] != 0:
@@ -2857,9 +2869,8 @@ def phase17(dev, tum_dirs, root: Path, frames: int = MULTI_FRAMES) -> dict:
     bad = [s for s in run["sites"] if s]
     p["replayed"], p["steps"] = len(run["sites"]), (run["steps"] or [(0, 0, 0)])[0]
     eager, captures, replays = p["steps"]
-    # a key (every sequence's FAST threshold) runs eagerly once, then is
-    # captured (and replayed) on its next frame and replayed after; the
-    # adaptive detector makes new keys
+    # the key runs eagerly once, then is captured (and replayed) on its next
+    # frame and replayed after: the FAST threshold stays fixed (F25)
     if bad or eager != captures or eager + replays != T - 1:
         fail(f"[17 multi] replayed lockstep frames synchronized {bad[:3]} (eager, captured, "
              f"replayed {run['steps']})")
@@ -2911,29 +2922,23 @@ def phase17(dev, tum_dirs, root: Path, frames: int = MULTI_FRAMES) -> dict:
     del run, sq, kp, got, parts
     lap("sharded compare")
 
-    # ---- sequences 0 and 7 alone through GraphManager ------------------
+    # ---- sequences 0 and 7 alone: MultiSequenceSlam with S = 1 ----------
     p["single"] = {}
     for i in MULTI_SINGLE:
-        mgr = GraphManager(TUM_DEFAULT, multi_params(tpu_seed=i), device=dev)
-        poses = seqs[i][0]
-        for k in range(T):
-            mgr.add_frame(None, None, k / 30.0, ground_truth_pose=poses[0] if k == 0 else None,
-                          compact=wires[i][k])
-        mgr._drain_pending()
-        h = mgr.host
-        mirrors = (h.edge_active, h.edge_i, h.edge_j, h.edge_types, h.keyframes)
+        one = multi_run([seqs[i]], [wires[i]], T, params=multi_params(tpu_seed=i))
+        h = one["ms"].seq[0].host
         same = all(np.array_equal(np.asarray(a), np.asarray(b))
-                   for a, b in zip(mirrors, mirrors_main[i]))
-        single = manager_protocol(mgr, stamps, gt_xyz[i])
-        d = {lv: abs(single[lv][0] - ate[lv][i]) for lv in (0, 4)}
-        p["single"][i] = dict(same=same, l0=single[0][0], l4=single[4][0], d0=d[0], d4=d[4],
-                              edges=h.n_edges, keyframes=len(h.keyframes))
-        del mgr
+                   for a, b in zip(one["mirrors"][0], mirrors_main[i]))
+        _, single = one["ms"].evaluation_protocol(gt_stamps=[stamps], gt_xyz=[gt_xyz[i]])
+        d = {lv: abs(float(single[lv][0]) - ate[lv][i]) for lv in (0, 4)}
+        p["single"][i] = dict(same=same, l0=float(single[0][0]), l4=float(single[4][0]),
+                              d0=d[0], d4=d[4], edges=h.n_edges, keyframes=len(h.keyframes))
+        del one, h
         if not same or max(d.values()) > MULTI_SINGLE_TOL:
-            fail(f"[17 single] sequence {i} against GraphManager with tpu_seed {i}: mirrors "
-                 f"equal {same}, |L0 - L0'| {d[0]:.3e}, |L4 - L4'| {d[4]:.3e} (limit "
+            fail(f"[17 single] sequence {i} against MultiSequenceSlam(S=1, tpu_seed={i}): "
+                 f"mirrors equal {same}, |L0 - L0'| {d[0]:.3e}, |L4 - L4'| {d[4]:.3e} (limit "
                  f"{MULTI_SINGLE_TOL} m)")
-    lap("single managers")
+    lap("sequences alone")
 
     # ---- replay = eager and mesh = no mesh, no online optimize ----------
     n_eq = min(MULTI_EQUAL_FRAMES, T)
@@ -3038,7 +3043,8 @@ def report_phase17(p: dict, smi_line: str) -> None:
     S, T = MULTI_S, p["frames"]
     ate, st = p["ate"], p["stats"]
     phase(f"[17 multi] MultiSequenceSlam: {S} sequences x {T} lockstep frames of {p['size']}, "
-          f"make_pipe (pose_relative_to first), one world each; protocol L0 "
+          f"make_pipe (pose_relative_to first; optimized every optimizer_skip_step frames as the "
+          f"slam-multi CLI does), one world each; protocol L0 "
           f"{' / '.join(f'{x:.4f}' for x in ate[0])} m; L4 "
           f"{' / '.join(f'{x:.4f}' for x in ate[4])} m (all frames); active edges "
           f"{' / '.join(str(s['active_edges']) for s in st)}, loop edges "
@@ -3066,8 +3072,8 @@ def report_phase17(p: dict, smi_line: str) -> None:
           f"each such frame); encode of the {S} wires {p['encode_ms']:.3f} ms a lockstep frame "
           f"(before the run) [{smi_line}]")
     for i, s in p["single"].items():
-        phase(f"[17 single] sequence {i} against GraphManager(tpu_seed={i}) fed the same wires "
-              f"with add_frame: edge mirrors, edge types and keyframes equal {s['same']} "
+        phase(f"[17 single] sequence {i} against MultiSequenceSlam(S=1, tpu_seed={i}) fed the "
+              f"same wires: edge mirrors, edge types and keyframes equal {s['same']} "
               f"({s['edges']} edge slots, {s['keyframes']} keyframes); L0 {s['l0']:.6f} against "
               f"{ate[0][i]:.6f} m (|d| {s['d0']:.2e}), L4 {s['l4']:.6f} against "
               f"{ate[4][i]:.6f} m (|d| {s['d4']:.2e}; limit {MULTI_SINGLE_TOL})")
@@ -3114,12 +3120,354 @@ def report_phase17(p: dict, smi_line: str) -> None:
           + f"; phase {p['total_s']:.1f} s")
 
 
+SERVE_FRAMES = 120  # phase 18: frames of each run --serve
+SERVE_INTERVAL = 30  # --serve-interval (the CLI's default)
+# phase 18's control sequence over HTTP, by the frames offered so far (group
+# boundaries of make_pipe's 4 frames a step after the single first frame)
+SERVE_SAVE_AT, SERVE_PAUSE_AT, SERVE_STEP_AT, SERVE_RESUME_AT, SERVE_PARAM_AT = 21, 41, 51, 52, 60
+SERVE_SCRIPT = {SERVE_SAVE_AT: "save", SERVE_PAUSE_AT: "pause", SERVE_STEP_AT: "step",
+                SERVE_RESUME_AT: "pause",
+                SERVE_PARAM_AT: "param?name=observability_threshold&value=1.0"}
+SERVE_DROPPED = range(SERVE_PAUSE_AT, SERVE_STEP_AT)  # offered while paused, dropped
+SERVE_POSE_TOL = 1e-5  # metres: the controlled runs' poses, captured against eager (atomics)
+SERVE_FPS_RUNS = 2  # run_tum with the live view on and off, alternating, each
+
+
+def serve_run(tum_dir: Path, out: Path, eager: bool) -> dict:
+    """rgbdslam-torch run --tum-dir --serve 0 with make_pipe's parameters on
+    SERVE_FRAMES frames, in this process, driven over HTTP from a thread of
+    its own: after the frames SERVE_SCRIPT names have been offered, the run
+    loop waits while that thread POSTs the action to /ctl/ (so each lands at
+    a fixed frame); during the CLI's final linger it GETs the page and the
+    panes. eager: the steps run without CUDA graphs. Records launches and
+    pipeline counters around each action, the synchronizing calls of each
+    group that only replayed, the step graphs' counts and the host mirrors."""
+    import io
+    import socketserver
+    import types
+    import urllib.error
+    import urllib.request
+
+    import torch
+    import rgbdslam_v2_tpu_torch.pipeline as pipeline_pkg
+    from rgbdslam_v2_tpu_torch.apps import cli
+    from rgbdslam_v2_tpu_torch.core import alignment
+    from rgbdslam_v2_tpu_torch.ops import detect, registration
+
+    rec = {"actions": {}, "at": {}, "replay_sites": [], "page": None}
+    server, built = {}, []
+    http = ThreadPoolExecutor(1, thread_name_prefix="http-client")
+
+    def request(path, post=False):
+        url = f"http://127.0.0.1:{server['srv'].server_address[1]}{path}"
+        req = urllib.request.Request(url, method="POST" if post else "GET")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as exc:
+            return exc.code, b""
+
+    class Recording(socketserver.TCPServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            server["srv"] = self
+
+    def snapshot(pipe):
+        sg = pipe.manager.step_graph
+        return dict(detect=detect.LAUNCHES, refine=registration.LAUNCHES,
+                    processed=pipe.n_processed, dropped=pipe.n_dropped,
+                    nodes=pipe.manager.n_nodes, paused=pipe.paused,
+                    keys=sg and (sg.eager_groups, sg.captures))
+
+    class Controlled(pipeline_pkg.SlamPipeline):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if eager:
+                self.manager.step_graph = None
+            self.offered = 0
+            built.append(self)
+
+        def _after(self, n):
+            self.offered += n
+            action = SERVE_SCRIPT.get(self.offered)
+            rec["at"][self.offered] = snapshot(self)
+            if action is not None:
+                code, body = http.submit(request, f"/ctl/{action}", True).result()
+                rec["actions"][self.offered] = (self.offered, code, json.loads(body))
+
+        def process_frame(self, *a, **kw):
+            took = super().process_frame(*a, **kw)
+            self._after(1)
+            return took
+
+        def _process_group(self, compacts, stamps):
+            sg = self.manager.step_graph
+            state = sg and (sg.captures, sg.eager_groups)
+            sites = sync_sites(lambda: super(Controlled, self)._process_group(compacts, stamps))
+            if sg and (sg.captures, sg.eager_groups) == state:
+                rec["replay_sites"].append((self.offered, sites))
+            self._after(len(compacts))
+
+    def linger(seconds):  # the CLI's wait for the page's last poll
+        pipe = built[0]
+        rec["linger_s"] = seconds
+        rec["page"] = http.submit(request, "/").result()
+        rec["gen"] = http.submit(request, "/gen").result()
+        rec["panes"] = [http.submit(request, f"/{n}?g=1").result() for n in
+                        ("frame.png", "depth.png")]
+        rec["save_pending"] = pipe._live_save_requested
+
+    detect.reset_launches()
+    registration.reset_launches()
+    alignment.reset_launches()
+    argv = ["run", "--tum-dir", tum_dir, "--out", out, "--max-frames", SERVE_FRAMES,
+            "--serve", 0, "--serve-interval", SERVE_INTERVAL, *make_pipe_flags()]
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with (patched(pipeline_pkg, "SlamPipeline", Controlled),
+              patched(socketserver, "TCPServer", Recording),
+              patched(cli, "time", types.SimpleNamespace(sleep=linger)),
+              contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err)):
+            code = cli.main([str(a) for a in argv])
+    finally:
+        http.shutdown(wait=True)
+    rec["cli_s"] = time.perf_counter() - t0
+    if code != 0 or not built:
+        print(err.getvalue()[-4000:], file=sys.stderr, end="")
+        fail(f"[18 serve] rgbdslam-torch run --serve exited {code}")
+    pipe = built[0]
+    mgr = pipe.manager
+    sg = mgr.step_graph
+    rec["url"] = json.loads(err.getvalue().strip().splitlines()[-1])["url"]
+    rec["launches"] = (detect.LAUNCHES, registration.LAUNCHES, alignment.LAUNCHES)
+    rec["steps"] = sg and (sg.eager_groups, sg.captures, sg.replays, sg.capture_s)
+    mgr._drain_pending()
+    h = mgr.host
+    rec["mirrors"] = (h.edge_active.copy(), h.edge_i.copy(), h.edge_j.copy(), list(h.edge_types))
+    rec["poses"] = mgr.poses()
+    rec["final"] = snapshot(pipe)
+    rec["final"].pop("keys")
+    rec["pipe"] = pipe
+    torch.cuda.synchronize()
+    return rec
+
+
+def phase18(dev, tum_dir: Path, root: Path) -> dict:
+    """ROADMAP item 27b on the card (see the module docstring, phase 18);
+    fails on a gate, returns the records."""
+    import io
+    import socketserver
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from rgbdslam_v2_tpu_torch.apps import cli
+    from rgbdslam_v2_tpu_torch.core.camera import TUM_DEFAULT
+    from rgbdslam_v2_tpu_torch.graph.g2o_io import read_g2o
+    from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
+    from rgbdslam_v2_tpu_torch.io import TumDataset
+    from rgbdslam_v2_tpu_torch.io.png import read_png
+    from rgbdslam_v2_tpu_torch.io.pointcloud import read_pcd
+    from rgbdslam_v2_tpu_torch.io.tum import read_trajectory_file
+    from rgbdslam_v2_tpu_torch.pipeline import SlamPipeline
+    from rgbdslam_v2_tpu_torch.utils import roofline
+
+    p = {"seconds": {}}
+    t_all = t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        p["seconds"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    out, out_e = root / "serve", root / "serve_eager"
+    run = serve_run(tum_dir, out, eager=False)
+    lap("run --serve")
+    at, act = run["at"], run["actions"]
+    # pause: the frames offered while paused are dropped and launch nothing
+    first, last = at[SERVE_DROPPED[0]], at[SERVE_DROPPED[-1] + 1]
+    p["pause"] = dict(act=act[SERVE_PAUSE_AT], dropped=len(SERVE_DROPPED),
+                      launches=(last["detect"] - first["detect"], last["refine"] - first["refine"]),
+                      moved=(last["processed"] - first["processed"],
+                             last["nodes"] - first["nodes"]))
+    if (act[SERVE_PAUSE_AT][2] != {"status": "paused"} or p["pause"]["launches"] != (0, 0)
+            or p["pause"]["moved"] != (0, 0) or act[SERVE_RESUME_AT][2] != {"status": "running"}):
+        fail(f"[18 serve] while paused: {p['pause']}")
+    # step: exactly one frame, one detect and one refine launch
+    a, b = at[SERVE_STEP_AT], at[SERVE_RESUME_AT]
+    p["step"] = dict(act=act[SERVE_STEP_AT], moved=(b["processed"] - a["processed"],
+                                             b["nodes"] - a["nodes"]),
+                     launches=(b["detect"] - a["detect"], b["refine"] - a["refine"]))
+    if p["step"]["moved"] != (1, 1) or p["step"]["launches"] != (1, 1) or not b["paused"]:
+        fail(f"[18 serve] /ctl/step: {p['step']}, paused after it {b['paused']}")
+    # param: a new key (eager, then one capture), every later frame rejected
+    active, ei, ej, types = run["mirrors"]
+    eg, caps, reps, cap_s = run["steps"]
+    new_keys = (eg - at[SERVE_PARAM_AT]["keys"][0], caps - at[SERVE_PARAM_AT]["keys"][1])
+    first_after, n = at[SERVE_PARAM_AT]["nodes"], run["final"]["nodes"]  # the node ids after it
+    bad = [nid for nid in range(first_after, n)
+           if [types[e] for e in np.nonzero(active)[0] if ej[e] == nid] != [EDGE_CONST_POSITION]]
+    visual_before = sum(types[e] != EDGE_CONST_POSITION for e in np.nonzero(active)[0]
+                        if ej[e] < first_after)
+    after = [sites for at_k, sites in run["replay_sites"] if at_k >= SERVE_PARAM_AT]
+    p["param"] = dict(act=act[SERVE_PARAM_AT], rejected=n - first_after - len(bad),
+                      later=n - first_after,
+                      visual_before=visual_before, eager_groups=eg, captures=caps, replays=reps,
+                      capture_s=cap_s, new_keys=new_keys, replayed_after=len(after),
+                      syncs_after=sum(len(s) for s in after), launches=run["launches"])
+    # after the change: one new key, run eagerly once and captured once
+    if (act[SERVE_PARAM_AT][2] != {"status": "observability_threshold=1.0"} or bad
+            or not visual_before or new_keys != (1, 1) or not after
+            or p["param"]["syncs_after"]):
+        fail(f"[18 serve] /ctl/param: {p['param']}, nodes not entering by their "
+             f"constant-position edge alone {bad[:5]}")
+    # the same run stepped eagerly, with the same controls at the same frames
+    eager = serve_run(tum_dir, out_e, eager=True)
+    lap("run --serve, eager")
+    same = all(np.array_equal(np.asarray(x), np.asarray(y))
+               for x, y in zip(run["mirrors"], eager["mirrors"]))
+    p["eager"] = dict(same=same, pose_diff=float(np.abs(run["poses"] - eager["poses"]).max()),
+                      final=run["final"] == eager["final"])
+    if not same or not p["eager"]["pose_diff"] <= SERVE_POSE_TOL or not p["eager"]["final"]:
+        fail(f"[18 serve] captured against eager: {p['eager']}")
+    # outputs: the live files parse, the cloud the save asked for, the page
+    ds = TumDataset.open(tum_dir)
+    shape = ds.load(0)[1].shape
+    est = read_trajectory_file(out / "estimate.txt")
+    g_poses, _fixed, g_edges = read_g2o(out / "graph.g2o")
+    pts, _ = read_pcd(out / "cloud.pcd")
+    panes = [read_png(out / f) for f in ("frame.png", "depth.png")]
+    status, page = run["page"]
+    p["outputs"] = dict(estimate=est.shape[0], g2o=(len(g_poses), len(g_edges)),
+                        cloud=len(pts), panes=[x.shape for x in panes], page=len(page),
+                        save=act[SERVE_SAVE_AT], url=run["url"], gen=int(run["gen"][1]),
+                        served_panes=[c for c, _ in run["panes"]], linger_s=run["linger_s"])
+    if (est.shape[0] != n or len(g_poses) != n or not len(g_edges) or not len(pts)
+            or any(x.shape != shape for x in panes) or status != 200
+            or b"bPause" not in page or b"const DATA" not in page
+            or p["outputs"]["served_panes"] != [200, 200] or run["save_pending"]):
+        fail(f"[18 serve] live outputs: {p['outputs']}")
+    # view --html --views 2, then serve answering GET /
+    code, stdout, _ = run_cli(["view", out, "--html", "--views", 2])
+    views = json.loads(stdout.strip().splitlines()[-1]) if code == 0 else {}
+    p["view"] = dict(code=code, views=len(views.get("views", [])),
+                     html=Path(views.get("html", "/nonexistent")).is_file())
+    if p["view"] != dict(code=0, views=2, html=True) or not all(
+            read_png(v).shape == (720, 960, 3) for v in views["views"]):
+        fail(f"[18 view] {p['view']}")
+    with socketserver.TCPServer(("127.0.0.1", 0), lambda *a: None) as probe:
+        port = probe.server_address[1]
+    serve = subprocess.Popen([sys.executable, "-m", "rgbdslam_v2_tpu_torch.apps.cli", "serve",
+                              str(out), "--port", str(port)], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        body, t_s = None, time.perf_counter()
+        while body is None and time.perf_counter() - t_s < 60 and serve.poll() is None:
+            try:
+                body = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=10).read()
+            except OSError:
+                time.sleep(0.2)
+        p["serve"] = dict(answered=body is not None and b"const DATA" in body,
+                          s=time.perf_counter() - t_s)
+    finally:
+        serve.terminate()
+        serve.wait(30)
+    if not p["serve"]["answered"]:
+        fail(f"[18 serve] rgbdslam-torch serve did not answer GET /: "
+             f"{serve.stderr.read().decode()[-2000:]}")
+    lap("outputs, view, serve")
+    # fps: run_tum with the live view on (live_dir, a server, no requests)
+    # and off, alternating, at equal frame counts
+    p["fps"] = {"on": [], "off": []}
+    p["live"] = []  # each on-run's refreshes: (count, read ms, write ms) a refresh
+    p["fps"]["warm-up"] = []
+    for kind in ("warm-up",) + ("on", "off") * SERVE_FPS_RUNS:
+        pipe = SlamPipeline(TUM_DEFAULT, make_pipe_params(), device=dev)
+        httpd = None
+        if kind != "off":
+            pipe.live_dir, pipe.live_interval = root / "fps_live", SERVE_INTERVAL
+            httpd = socketserver.TCPServer(("127.0.0.1", 0),
+                                           cli.make_viewer_handler(pipe.live_dir, pipe=pipe))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        torch.cuda.synchronize()
+        tf = time.perf_counter()
+        pipe.run_tum(ds, SERVE_FRAMES)
+        pipe.wait_live()  # the last refresh's files written
+        torch.cuda.synchronize()
+        p["fps"][kind].append(SERVE_FRAMES / (time.perf_counter() - tf))
+        if kind == "on":
+            lt = pipe.live_times
+            n = max(1, lt["refreshes"])
+            p["live"].append((lt["refreshes"], 1e3 * lt["read_s"] / n, 1e3 * lt["write_s"] / n))
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        del pipe
+    lap("fps on and off")
+    _, rgb, depth = ds.load(SERVE_PARAM_AT)
+    buf = io.StringIO()
+    rows = roofline.report(run["pipe"].manager, rgb, depth, n_steps=10, out=buf,
+                           tag="[18 roofline]")
+    p["roofline"] = buf.getvalue().rstrip("\n").splitlines()
+    p["roofline_rows"] = rows
+    if any(r[1] is None for r in rows):
+        fail("[18 roofline] a stage's traces held no device activity")
+    del run, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("roofline")
+    p["total_s"] = time.perf_counter() - t_all
+    return p
+
+
+def report_phase18(p: dict, smi_line: str) -> None:
+    """Phase 18's lines."""
+    pa, st, pr, o = p["pause"], p["step"], p["param"], p["outputs"]
+    phase(f"[18 serve] rgbdslam-torch run --tum-dir --serve 0 --serve-interval {SERVE_INTERVAL}, "
+          f"make_pipe, {SERVE_FRAMES} frames of 640x480, driven over HTTP at fixed frames: "
+          f"/ctl/pause at {pa['act'][0]} {pa['act'][2]}: {pa['dropped']} frames dropped with "
+          f"(detect, refine) launches {pa['launches']} and (processed, nodes) moved "
+          f"{pa['moved']}; /ctl/step at {st['act'][0]}: (processed, nodes) +{st['moved']}, "
+          f"launches +{st['launches']}; /ctl/save at {o['save'][0]} {o['save'][2]}")
+    phase(f"[18 serve] /ctl/param at {pr['act'][0]} {pr['act'][2]}: {pr['rejected']} of the "
+          f"{pr['later']} nodes after it enter by their constant-position edge "
+          f"alone ({pr['visual_before']} visual edges before); step graphs: {pr['eager_groups']} "
+          f"eager groups, {pr['captures']} captures ({pr['new_keys'][1]} re-capture after the "
+          f"change; {pr['capture_s']:.3f} s capturing in all), {pr['replays']} replays; "
+          f"launches detect {pr['launches'][0]}, refine {pr['launches'][1]}, Kabsch "
+          f"{pr['launches'][2]}; "
+          f"synchronizing calls in the {pr['replayed_after']} replayed groups after it "
+          f"{pr['syncs_after']}; the same run stepped eagerly: edge mirrors equal "
+          f"{p['eager']['same']}, max pose difference {p['eager']['pose_diff']:.2e} (limit "
+          f"{SERVE_POSE_TOL}; the online optimizes' float atomics) [{smi_line}]")
+    phase(f"[18 serve] live outputs parse: estimate.txt {o['estimate']} rows, graph.g2o "
+          f"{o['g2o'][0]} vertices / {o['g2o'][1]} edges, cloud.pcd {o['cloud']} points, "
+          f"frame.png and depth.png {o['panes'][0]}; served {o['url']} (page {o['page']} "
+          f"bytes with the controls, gen {o['gen']}, panes {o['served_panes']}) during the "
+          f"{o['linger_s']} s linger; view --html --views 2: {p['view']['views']} PNGs and the "
+          f"page; serve answered GET / after {p['serve']['s']:.2f} s")
+    f = p["fps"]
+    phase(f"[18 fps] run_tum, make_pipe, {SERVE_FRAMES} frames, alternating: live view on "
+          f"(live_dir every {SERVE_INTERVAL} frames, a server up) "
+          f"{' / '.join(f'{x:.2f}' for x in f['on'])} fps, off "
+          f"{' / '.join(f'{x:.2f}' for x in f['off'])} fps, after a warm-up run with it on "
+          f"({f['warm-up'][0]:.2f} fps, not counted) [{smi_line}]")
+    phase("[18 live] a refresh, each on-run: " + "; ".join(
+        f"{n} refreshes, {r:.2f} ms reading the card on the run loop, {w:.2f} ms writing "
+        f"the files on the worker" for n, r, w in p["live"]))
+    for line in p["roofline"]:
+        phase(line)
+    phase(f"[18 seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in p["seconds"].items())
+          + f"; phase {p['total_s']:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=520)
     args = ap.parse_args()
-    if args.frames <= WARMUP + 2:
-        fail(f"--frames must be at least {WARMUP + 3}")
+    if args.frames < SERVE_FRAMES:
+        fail(f"--frames must be at least {SERVE_FRAMES} (phase 18's control sequence)")
     n_main, n_default = min(MAIN_FRAMES, args.frames), min(DEFAULT_FRAMES, args.frames)
     n_spin, n_hard = min(SPIN_FRAMES, args.frames), min(HARD_FRAMES, args.frames)
     n_dicp = min(DEFAULT_ICP_FRAMES, args.frames)
@@ -3825,7 +4173,8 @@ def main() -> None:
           f"voxels differing {tm['voxel_differ']}, {tm['voxels_hit']} voxels hit; card insert "
           f"median {tm['voxel_insert_ms']:.2f} ms a cloud (host clock, synchronized)")
     dst = tm["default_stats"]
-    phase(f"[12 tum] default configuration through the CLI, {n_default} frames: ATE L0..L4 "
+    phase(f"[12 tum] default configuration through the CLI, "
+          f"{min(n_default, TUM_DEFAULT_FRAMES)} frames: ATE L0..L4 "
           f"{' / '.join(f'{a:.4f}' for a in tm['default_ate'])} m (limit L4 <= "
           f"{DEFAULT_ATE_L4_MAX}); {tm['default_fps']:.2f} fps; nodes {dst['nodes']}, "
           f"keyframes {dst['keyframes']}; detect launches {tm['default_launches'][0]}, refine "
@@ -4020,13 +4369,25 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase(f"[17 multi] ROADMAP item 28: {MULTI_S} sequences of full SLAM in lockstep "
-          f"(parallel/slam_multi.py), the same through GraphManager one by one, replay = eager, "
+          f"(parallel/slam_multi.py), sequences 0 and 7 alone, replay = eager, "
           f"a 2-shard mesh, the sharded compare and LM, vo-multi, and the slam-multi CLI")
     p17 = phase17(dev, [Path(work.name) / "tum", Path(work.name) / "tum_adaptive"],
                   Path(work.name), min(MULTI_FRAMES, args.frames))
-    work.cleanup()  # phase 12's TUM directories served phases 15 and 17
     report_phase17(p17, smi_line)
     launches_phase.update(slam_multi=p17["launches"], vo_multi=p17["vo_launches"])
+
+    # ---- 18. the live viewer and the run controls: run --serve, view, serve
+    del p17
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"[18 serve] ROADMAP item 27b: rgbdslam-torch run --serve on phase 12's Up "
+          f"directory, driven over HTTP (pause, step, save, param), against the same run "
+          f"stepped eagerly; view --html and serve; fps with the live view on and off; the "
+          f"step's stages against the roofline")
+    p18 = phase18(dev, Path(work.name) / "tum", Path(work.name))
+    work.cleanup()  # phase 12's TUM directories served phases 15, 17 and 18
+    report_phase18(p18, smi_line)
+    launches_phase["serve"] = p18["param"]["launches"]
 
     phase(f"[done] total {time.perf_counter() - t_start:.1f} s; {phase_seconds()}")
     (dk, ek), (dp, ep) = times["frame"], times["frame_plain"]

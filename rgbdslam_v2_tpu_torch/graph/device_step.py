@@ -11,8 +11,8 @@ host reads the packed (4B+2,) summary later, at a drain.
 Node ids, the predecessor id and the first edge slot are (1,) long device
 tensors, and every write indexes with them (``index_copy_``), so the
 step's kernels do not depend on the frame: :class:`StepGraph` captures
-``slam_stepN`` once per (n, FAST threshold, wire length, step options) and
-replays it for every later group, with the group's inputs copied into
+``slam_stepN`` once per ``step_key`` (n, wire length and every value of
+the step configuration) and replays it for every later group, with the group's inputs copied into
 static buffers first. Under the delta wire (``tpu_wire_delta``) every wire
 is padded to the I length and carries an I/P flag read on the device, and
 the previous frame's wire codes live in two device tensors that each step
@@ -29,6 +29,7 @@ through cuSOLVER.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import math
 import time
@@ -281,13 +282,42 @@ def slam_stepN(store: NodeStore, graph: GraphState, g: GroupInputs,
     return torch.stack(sums)
 
 
+_SCALARS = (bool, int, float, str, type(None))
+# fields of a step-configuration value that are not scalars, each following
+# from the value's scalar fields: the ydct spec's tables from its name
+_DERIVED = {("DctSpec", "bit_alloc"), ("DctSpec", "qstep"), ("DctSpec", "synthesis")}
+
+
+def _key_part(v):
+    """A step-configuration value as part of a key: a scalar as it is; a
+    dataclass or NamedTuple (the extractor, the cameras, the ydct spec) as
+    its type and scalar fields. A field that is not a scalar raises
+    TypeError unless _DERIVED names it, and so does any other value, so
+    that no later option can slip out of the key."""
+    if isinstance(v, _SCALARS):
+        return v
+    if dataclasses.is_dataclass(v):
+        fields = [(f.name, getattr(v, f.name)) for f in dataclasses.fields(v)]
+    elif isinstance(v, tuple) and hasattr(v, "_fields"):
+        fields = list(zip(v._fields, v))
+    else:
+        raise TypeError(f"step configuration value {v!r} has no key")
+    kind = type(v).__name__
+    for k, x in fields:
+        if not isinstance(x, _SCALARS) and (kind, k) not in _DERIVED:
+            raise TypeError(f"step configuration field {kind}.{k} = {x!r} has no key")
+    return (kind, *((k, x) for k, x in fields if isinstance(x, _SCALARS)))
+
+
 def step_key(n: int, L: int, cfg: dict, wire) -> tuple:
     """What a captured step depends on besides its inputs: the group size,
-    the FAST threshold (None for SIFT), the wire length and the step's
-    options."""
-    return (n, getattr(cfg["extractor"], "fast_threshold", None), L, cfg["fmt"],
-            cfg["gray_bits"], cfg["depth_bits"], cfg["projective_iterations"], cfg["emm_exact"],
-            cfg["edge_info_mode"], wire is not None)
+    the wire length, whether the delta wire's codes are read, and every
+    value of the step configuration (GraphManager._step_cfg, read afresh
+    each step call), the extractor's FAST threshold among them. A setting
+    changed mid-run (SlamPipeline.set_param) is a new key, whose first
+    group runs eagerly and whose second is captured, as the JAX package
+    recompiles its step for a new static argument."""
+    return (n, L, wire is not None, *((k, _key_part(v)) for k, v in sorted(cfg.items())))
 
 
 # modules whose LAUNCHES count kernel launches; a capture records its
@@ -385,10 +415,10 @@ class CapturedSteps:
 
 
 class StepGraph(CapturedSteps):
-    """slam_stepN on the card as CUDA graphs, one per step_key (n, FAST
-    threshold, wire length, step options); SIFT has no FAST threshold (None
-    in the key). Under the delta wire `wire` is the manager's pair of code
-    tensors, which every replay reads and overwrites."""
+    """slam_stepN on the card as CUDA graphs, one per step_key (n, wire
+    length, every value of the step configuration). Under the delta wire
+    `wire` is the manager's pair of code tensors, which every replay reads
+    and overwrites."""
 
     def __init__(self, store: NodeStore, graph: GraphState, generator: torch.Generator,
                  wire=None):

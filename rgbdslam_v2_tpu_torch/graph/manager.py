@@ -184,7 +184,6 @@ def check_slice(p: ParameterServer) -> None:
         "tpu_edge_info": p["tpu_edge_info"] not in ("scalar", "hessian"),
         "tpu_approx_select": p["tpu_approx_select"],
         "tpu_descriptor_dtype": p["tpu_descriptor_dtype"] not in DESC_DTYPES,
-        "start_paused": p["start_paused"],
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -449,6 +448,22 @@ class GraphManager:
         # rebuilds its codes from the I wire
         self._wire_synced = True
         return packed
+
+    def wire_mark(self):
+        """The delta wire's host state (the mirror of the card's codes, and
+        whether the card holds it), for wire_rewind; None without the delta
+        wire. The mirror is copied: the native encoder advances it in place."""
+        if not self.wire_delta:
+            return None
+        return (None if self._wire_qg is None else self._wire_qg.copy(),
+                None if self._wire_qd is None else self._wire_qd.copy(), self._wire_synced)
+
+    def wire_rewind(self, mark) -> None:
+        """Undo the encodes since wire_mark, for a frame encoded and then not
+        dispatched (dropped while paused): the mirror must follow the codes
+        the card holds, or the next P wire decodes against other codes."""
+        if mark is not None:
+            self._wire_qg, self._wire_qd, self._wire_synced = mark
 
     @torch.inference_mode()
     def extract(self, frame: Frame) -> Keypoints:
@@ -822,6 +837,12 @@ class GraphManager:
         if len(self._pending) >= p["tpu_drain_interval"]:
             # the newest 2 steps may still be running: leave them pending
             self._drain_pending(keep_newest=2)
+        self._online_optimize(n)
+
+    def _online_optimize(self, n: int) -> None:
+        """After n frames entered: the online optimize, once
+        optimizer_skip_step frames have entered since the last one."""
+        p = self.params
         self.nodes_since_optimize += n
         if self.nodes_since_optimize >= p["optimizer_skip_step"]:
             self.optimize(iterations=p["online_optimizer_iterations"], blocking=False,

@@ -42,6 +42,20 @@ def draw_feature_flow(
         img[ys[ok], xs[ok]] = color
 
     green, red, blue = (0, 255, 0), (255, 60, 60), (80, 120, 255)
+    marks = np.rint(np.asarray(uv_now)[np.asarray(match_valid, bool)]).astype(np.int64)
+    if (inliers is None and np.array_equal(uv_now, uv_prev)
+            and np.all((marks >= 0) & (marks <= [W, H]))):
+        # a frame's own keypoints (the live view's pane): every flow is one
+        # pixel under its own dot, so the image is the union of the dots,
+        # in any order (the loop's result, without a Python step a mark)
+        mask = np.zeros((H, W), bool)
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                x, y = marks[:, 0] + dx, marks[:, 1] + dy
+                ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+                mask[y[ok], x[ok]] = True
+        img[mask] = blue
+        return img
     for k in range(len(uv_now)):
         if not match_valid[k]:
             continue

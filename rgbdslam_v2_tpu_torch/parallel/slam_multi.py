@@ -19,17 +19,22 @@ per sequence on its own graph.
   with it), so a lockstep frame is one host-to-device copy of the packed
   inputs and one replay a device: the counterpart of the JAX package's one
   vmapped program. As device_step.StepGraph does, the first lockstep frame
-  of a key (every sequence's FAST threshold and the wire) runs eagerly on
+  of a key (every sequence's step_key) runs eagerly on
   a side stream, the second is captured, and a failed capture raises.
 * Host side: sequence i is a graph.manager.GraphManager over those views
   (``_SeqManager``), seeded as GraphManager seeds its own with tpu_seed =
-  seed0 + i. Candidate selection, drains (a staged drain is read one step
-  call later, F11), the adaptive detector, the starvation alert and the
-  online optimize are its code, so sequence i reproduces a single manager
-  fed the same wires with add_frame: the same slots, decisions and edges.
-  The summaries of all sequences on a device, (S_local, 4B+2), reach the
-  host in one asynchronous copy a lockstep frame; each sequence's drains
-  read its rows of those copies.
+  seed0 + i. Candidate selection and drains (a staged drain is read one
+  step call later, F11) are its code; as in the JAX package, a sequence
+  has no online optimize inside add_frames, no starvation alert, no
+  adaptive FAST ladder and no ICP rescue, so sequence i reproduces a
+  single manager with none of these fed the same wires with add_frame:
+  the same slots, decisions and edges. The summaries of all sequences on a
+  device, (S_local, 4B+2), reach the host in one asynchronous copy a
+  lockstep frame; each sequence's drains read its rows of those copies.
+* Pose graph: ``optimize`` runs each sequence's LM over its whole graph
+  with its first node fixed, the S loops in turn; the caller schedules the
+  online calls (the slam-multi CLI every optimizer_skip_step frames, as the
+  JAX CLI does).
 * Mesh: the sequences split into contiguous blocks over its devices, as
   P("c") does; the result equals mesh=None.
 
@@ -53,9 +58,10 @@ from ..config import ParameterServer, default_params
 from ..core.camera import Intrinsics
 from ..graph.device_step import CapturedSteps, group_views, slam_stepN, step_key
 from ..graph.host_graph import HostGraph
-from ..graph.manager import GraphManager, descriptor_layout, make_extractor
+from ..graph.manager import GraphManager, descriptor_layout
 from ..graph.node_store import NodeStore
-from ..optim.pose_graph import GraphState, make_graph_state
+from ..models.orb import OrbExtractor
+from ..optim.pose_graph import GraphState, make_graph_state, optimize
 from .mesh import DeviceMesh, on_device
 
 logger = logging.getLogger("rgbdslam.parallel")
@@ -81,7 +87,10 @@ class _SeqManager(GraphManager):
     """One sequence: a GraphManager over views of the stacks, whose steps
     the lockstep frame runs. Its summary rows are rows of the per-frame
     copy of every sequence's summaries, already on their way to the host,
-    so a drain stages them without a copy of its own."""
+    so a drain stages them without a copy of its own. It has none of the
+    single manager's online optimize, starvation alert, adaptive FAST
+    ladder and ICP rescue: the JAX MultiSequenceSlam has none of them (its
+    FAST threshold stays fixed, so the lockstep graph has one key)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -101,6 +110,18 @@ class _SeqManager(GraphManager):
         for e in pend:
             self._row_events.pop(e[0], None)
         return GraphManager._drain_batch(self, pend, host, event, lagged)
+
+    def _online_optimize(self, n: int) -> None:
+        pass  # MultiSequenceSlam.optimize, called by the caller
+
+    def _starvation_alert(self, packed) -> bool:
+        return False
+
+    def _adapt_detector(self, n_valid_kp: int) -> None:
+        pass
+
+    def _dispatch_retro_rescue(self, fallbacks) -> None:
+        pass  # use_icp has no rescue here
 
 
 class _Shard:
@@ -153,7 +174,10 @@ class MultiSequenceSlam:
         self.cand_batch = p["tpu_candidate_batch"]
         s = p["cloud_creation_skip_step"]
         h, w = cam.height // s, cam.width // s
-        extractor = extractor or make_extractor(p, p["max_keypoints"])
+        if extractor is None:  # the ORB family only, as the JAX package builds it
+            extractor = OrbExtractor(max_keypoints=p["max_keypoints"], fast_threshold=0.06,
+                                     grid=p["detector_grid_resolution"] + 1,
+                                     oriented=p["feature_extractor_type"].upper() != "BRIEF")
         desc_dim, desc_dtype = descriptor_layout(extractor, p)
         seed0 = int(p["tpu_seed"])
         self.seq: List[_SeqManager] = []
@@ -267,14 +291,31 @@ class MultiSequenceSlam:
         for sq in self.seq:
             sq._drain_pending(keep_newest=keep_newest)
 
+    @torch.inference_mode()
     def optimize(self, iterations: Optional[int] = None, blocking: bool = True,
                  pcg_iters: int = 64) -> np.ndarray:
-        """Each sequence's pose-graph optimize (GraphManager.optimize over
-        its committed prefix, pose_relative_to's fixation: the first node
-        unless configured otherwise). Returns the per-sequence chi2 (NaN
-        where non-blocking)."""
-        return np.asarray([sq.optimize(iterations=iterations, blocking=blocking,
-                                       pcg_iters=pcg_iters) for sq in self.seq])
+        """Each sequence's LM over its whole graph with its first node fixed
+        (JAX MultiSequenceSlam.optimize), the S loops in turn; all but the
+        newest 2 summaries drained first where non-blocking, which reads
+        nothing from the card. The solver: GraphManager's rule
+        (backend_solver's, else dense up to 1024 nodes of capacity). Returns the per-sequence chi2 (NaN where
+        non-blocking)."""
+        self._drain(keep_newest=0 if blocking else 2)
+        p = self.params
+        for sh in self.shards:
+            sh.graph.node_fixed.zero_()
+            sh.graph.node_fixed[:, 0] = True
+        chi2 = np.full(self.S, np.nan)
+        for i, sq in enumerate(self.seq):
+            with on_device(sq.device):
+                c, _ = optimize(sq.graph, iterations=int(iterations or p["optimizer_iterations"]),
+                                huber_delta=p["huber_delta"], pcg_iters=pcg_iters,
+                                solver=sq._solver(sq.n_cap),
+                                n_nodes=sq.n_nodes, n_edges=sq.n_edges,
+                                read_convergence=blocking)
+            if blocking:
+                chi2[i] = float(c)
+        return chi2
 
     def prune_edges_above(self, threshold: float) -> np.ndarray:
         """Per-sequence pruneEdgesWithErrorAbove (graph_manager.cpp:1106):
@@ -297,24 +338,18 @@ class MultiSequenceSlam:
         """The reference's 5-level protocol, per sequence: L0 online poses;
         L1 full optimize; L2..L4 prune chi2 > {edge_error_threshold, 1,
         0.25} and re-optimize (openni_listener.cpp:431-518), the first node
-        fixed as SlamPipeline.evaluation_protocol fixes it. Returns
-        {level: (S, T, 4, 4) poses} and, with ground truth (per-sequence
-        lists gt_stamps, gt_xyz), {level: (S,) ATE rmse}."""
+        fixed. Returns {level: (S, T, 4, 4) poses} and, with ground truth
+        (per-sequence lists gt_stamps, gt_xyz), {level: (S,) ATE rmse}."""
         from ..eval.ate import evaluate_ate
 
         p = self.params
         levels: Dict[int, np.ndarray] = {0: self.trajectories()}
-        saved = p["pose_relative_to"]
-        try:
-            p.set("pose_relative_to", "first")
-            self.optimize(iterations=p["optimizer_iterations"] * 2)
-            levels[1] = self.trajectories()
-            for level, thresh in ((2, p["edge_error_threshold"]), (3, 1.0), (4, 0.25)):
-                self.prune_edges_above(thresh)
-                self.optimize(iterations=p["optimizer_iterations"])
-                levels[level] = self.trajectories()
-        finally:
-            p.set("pose_relative_to", saved)
+        self.optimize(iterations=p["optimizer_iterations"] * 2)
+        levels[1] = self.trajectories()
+        for level, thresh in ((2, p["edge_error_threshold"]), (3, 1.0), (4, 0.25)):
+            self.prune_edges_above(thresh)
+            self.optimize(iterations=p["optimizer_iterations"])
+            levels[level] = self.trajectories()
         ate: Dict[int, np.ndarray] = {}
         if gt_stamps is not None and gt_xyz is not None:
             for level, poses in levels.items():

@@ -1,7 +1,9 @@
 """SLAM pipeline: frames -> graph -> trajectories, maps and the 5-level protocol.
 
-Port of ``rgbdslam_v2_tpu/pipeline/slam.py``: ``SlamPipeline.process_frame``
-(without the paused and live-view state), ``run_arrays``, ``run_tum``,
+Port of ``rgbdslam_v2_tpu/pipeline/slam.py``: ``SlamPipeline.process_frame``,
+the run controls (``paused``, ``start_paused``, ``toggle_pause``,
+``get_one_frame``, ``request_live_save``, ``set_param``) and the live view
+(``live_dir``, ``live_interval``, ``_live_refresh``), ``run_arrays``, ``run_tum``,
 ``run_bag``, ``run_clouds`` and ``run_stereo`` (frames grouped
 ``tpu_frames_per_step`` a step on the keep-all fast path, host encodes run
 ahead on a worker thread with ``tpu_encode_ahead``; all share one loop over
@@ -13,6 +15,26 @@ a frame source, ``_run_frames``), ``save_bagfile``, the online octomap
 with ``EvaluationReport``. The per-frame work runs
 under ``torch.inference_mode``. With no ``device`` the pipeline runs on the
 CUDA card, or raises where there is none.
+
+Run control (``rgbdslam-torch run --serve``): while paused, a frame is
+dropped before any counter moves and no group forms, so the card runs no
+step; ``get_one_frame`` lets exactly one frame through. ``set_param`` is
+one dict write: the manager re-reads its step configuration every step
+call, and on the card a changed value is a new CUDA-graph key
+(``device_step.step_key``), run eagerly once and then captured. The
+controls flip host state only: the HTTP handler thread that calls them
+makes no CUDA call, so it cannot break a capture on the run loop's thread.
+With ``live_dir`` set, every ``live_interval`` frames the live view
+refreshes estimate.txt, graph.g2o, frame.png (the frame with its
+committed keypoints) and depth.png there, and cloud.pcd when a save was
+requested, each atomically (a temporary file, then ``os.replace``); the
+frames' raw RGB and depth travel beside their wires through the
+encode-ahead worker only then. The run loop reads the trajectory, the
+graph and the keypoints from the card then, outside the step calls, and
+one worker thread writes the files from those host arrays while the next
+frames run. Under the delta wire a frame dropped while paused has its
+encode undone (``GraphManager.wire_rewind``), as the JAX package encodes
+such a wire only at dispatch.
 
 ``run_tum`` decodes the PNGs on ``io/tum.TumLoader``'s threads and feeds
 the host encoder what the JAX ``run_tum`` feeds its own: ``TumDataset.load``'s
@@ -35,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -47,6 +70,7 @@ from ..config import ParameterServer, default_params
 from ..core import se3
 from ..core.camera import Intrinsics, backproject_grid
 from ..eval.ate import evaluate_ate
+from ..graph.ingest import DEPTH_SCALE
 from ..graph.manager import GraphManager
 from ..interop import tensor_to_numpy
 from ..io.tum import TumDataset, TumLoader, write_trajectory
@@ -67,6 +91,49 @@ class EvaluationReport:
         return dataclasses.asdict(self)
 
 
+def _atomic(out: Path, name: str, write) -> None:
+    """write(path) to a temporary name in out, then replace out/name."""
+    tmp = out / f".{name}.tmp{Path(name).suffix}"
+    write(tmp)
+    os.replace(tmp, out / name)
+
+
+def _live_write(out: Path, stamps, poses, graph, pane) -> float:
+    """The live outputs from host arrays (SlamPipeline._live_refresh's
+    worker; no CUDA call): estimate.txt, graph.g2o and, with a pane (rgb,
+    depth, (uv, valid) of its committed keypoints or None, the depth range),
+    depth.png and frame.png. Returns its seconds."""
+    from ..graph.g2o_io import write_g2o
+    from ..io.render3d import write_png
+    from ..io.visualization import draw_feature_flow
+
+    t0 = time.perf_counter()
+    _atomic(out, "estimate.txt", lambda t: write_trajectory(t, stamps, poses))
+    _atomic(out, "graph.g2o", lambda t: write_g2o(t, *graph))
+    if pane is not None:
+        rgb, depth, kp, lo, hi = pane
+        if depth is not None:
+            # the depth pane (the GUI's depth image, misc.cpp:414's mono
+            # depthToCV8UC1): metres over [minimum_depth, maximum_depth] as
+            # grey, invalid pixels black
+            d = np.asarray(depth)
+            d = d.astype(np.float32) / DEPTH_SCALE if d.dtype == np.uint16 else d.astype(
+                np.float32)
+            ok = np.isfinite(d) & (d > 0)
+            g = np.clip((d - lo) / max(hi - lo, 1e-6), 0.0, 1.0)
+            img_d = np.where(ok, g * 255.0, 0.0).astype(np.uint8)
+            _atomic(out, "depth.png", lambda t: write_png(t, np.repeat(img_d[..., None], 3, -1)))
+        rgb = np.asarray(rgb)
+        if rgb.dtype.kind == "f":
+            rgb = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
+        if rgb.ndim == 2:
+            rgb = np.repeat(rgb[..., None], 3, axis=-1)
+        # the frame's own committed keypoints; a dropped frame draws none
+        img = rgb if kp is None else draw_feature_flow(rgb, kp[0], kp[0], kp[1])
+        _atomic(out, "frame.png", lambda t: write_png(t, img))
+    return time.perf_counter() - t0
+
+
 class SlamPipeline:
     def __init__(self, cam: Intrinsics, params: Optional[ParameterServer] = None,
                  device=None):
@@ -81,12 +148,112 @@ class SlamPipeline:
         self._online_map: Optional[VoxelMap] = None
         self._online_inserts = 0
         self.online_octomap_path = "map_online.ot"
+        # interactive run control (pause / step / one frame); start_paused
+        # is the reference's wait-for-user startup (parameter_server.cpp:154)
+        self.paused = bool(self.params["start_paused"])
+        self._step_once = False
+        # the live view (run --serve): outputs refreshed into live_dir every
+        # live_interval frames; the 2D panes show (rgb, depth, the frame's
+        # committed node id or None), the raw frame of the newest frame
+        # offered (_last_raw)
+        self.live_dir = None
+        self.live_interval = 30
+        self._live_counter = 0
+        self._live_save_requested = False
+        self._last_raw = None
+        self._live_frame = None
+        self._live_pool = None  # the live outputs' writer thread
+        self._live_write = None  # its write in flight
+        self.live_times = {"refreshes": 0, "read_s": 0.0, "write_s": 0.0}
+
+    # ---- run control (the reference's pause / space / enter semantics:
+    # openni_listener.cpp:119-120, :262, :665-749) -----------------------
+    def toggle_pause(self) -> bool:
+        self.paused = not self.paused
+        return self.paused
+
+    def get_one_frame(self) -> None:
+        """Process exactly one frame while paused (getOneFrame)."""
+        self._step_once = True
+
+    def request_live_save(self) -> None:
+        """Queue a cloud save at the next live refresh (the GUI's save
+        action, run on the run loop's thread, never on the HTTP handler's)."""
+        self._live_save_requested = True
+
+    def set_param(self, name: str, value):
+        """Set a parameter during a run (the GUI's setParam dialog and the
+        reload_config service: qt_gui.cpp:406-478, ros_service_ui.cpp:67):
+        one dict write. The manager reads its parameters each frame and its
+        step configuration each step call, so a change takes effect on the
+        next one; a step setting costs an eager group and a capture on the
+        card. KeyError on an unknown name; returns the coerced value."""
+        return self.params.set(name, value)
+
+    def _live_refresh(self, force: bool = False, count: int = 1) -> None:
+        """Refresh the live outputs in live_dir once every live_interval
+        frames (count: the frames this call stands for), or now with force:
+        estimate.txt and graph.g2o (read without a drain, as the JAX
+        package writes them), cloud.pcd when a save was requested,
+        frame.png with the shown frame's committed keypoints and depth.png.
+        The card is read here, on the run loop's thread, between step
+        calls; the text, the panes and their PNGs are written on one worker
+        thread (numpy and CPU tensors, no CUDA call), at most one refresh
+        in flight, and with force this waits for it. Each file is written
+        to a temporary name and replaced, so the serving thread never reads
+        a torn file. live_times sums each side's seconds."""
+        if self.live_dir is None:
+            return
+        before = self._live_counter
+        self._live_counter += count
+        iv = max(1, self.live_interval)
+        if not force and before // iv == self._live_counter // iv:
+            return
+        out = Path(self.live_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        mgr = self.manager
+        if mgr.n_nodes == 0:
+            return
+        t0 = time.perf_counter()
+        stamps, poses = mgr.trajectory()
+        graph = self._g2o_graph(drain=False)
+        if self._live_save_requested:
+            self._live_save_requested = False
+            _atomic(out, "cloud.pcd", self.save_clouds)
+        pane = None
+        if self._live_frame is not None:
+            rgb, depth, nid = self._live_frame
+            kp = None if nid is None else (mgr.store.uv[nid].cpu().numpy(),
+                                           mgr.store.kp_valid[nid].cpu().numpy())
+            pane = (rgb, depth, kp, float(self.params["minimum_depth"]),
+                    float(self.params["maximum_depth"]))
+        self.live_times["refreshes"] += 1
+        self.live_times["read_s"] += time.perf_counter() - t0
+        self.wait_live()
+        if self._live_pool is None:
+            self._live_pool = ThreadPoolExecutor(1, thread_name_prefix="live-write")
+        self._live_write = self._live_pool.submit(_live_write, out, stamps, poses, graph, pane)
+        if force:
+            self.wait_live()
+
+    def wait_live(self) -> None:
+        """Wait for the live outputs' write in flight, if any (its error,
+        if it failed, raised here)."""
+        if self._live_write is not None:
+            fut, self._live_write = self._live_write, None
+            self.live_times["write_s"] += fut.result()
 
     @torch.inference_mode()
     def process_frame(self, rgb, depth, timestamp: float, gt_pose=None,
                       compact=None) -> bool:
         """One frame (rgb u8 (H, W, 3), depth meters or u16 counts), or a
-        pre-packed yc12 buffer. Returns True when the node entered."""
+        pre-packed yc12 buffer. Returns True when the node entered; False
+        for a frame dropped while paused, which moves no counter."""
+        if self.paused and not self._step_once:
+            return False
+        self._step_once = False
+        if self.live_dir is not None and rgb is not None:
+            self._last_raw = (rgb, depth)
         t0 = time.perf_counter()
         took = self.manager.add_frame(rgb, depth, timestamp, gt_pose, compact=compact)
         self.wall_time += time.perf_counter() - t0
@@ -95,7 +262,16 @@ class SlamPipeline:
             self.n_dropped += 1
         elif self.params["octomap_online_creation"]:
             self._online_octomap_insert(self.manager.n_nodes - 1)
+        if self.live_dir is not None and self._last_raw is not None:
+            self._live_frame = (*self._last_raw, self.manager.n_nodes - 1 if took else None)
+        self._live_refresh()
         return took
+
+    def _with_raw(self, wire, rgb, depth):
+        """A frame as _run_frames takes it: (wire, raw), raw the frame's
+        (rgb, depth) with the live view on, whose 2D panes show it, else
+        None."""
+        return wire, (None if self.live_dir is None else (rgb, depth))
 
     def map_config(self) -> VoxelMapConfig:
         """The voxel map's settings from the octomap_* parameters."""
@@ -148,8 +324,12 @@ class SlamPipeline:
         if not idxs:
             return
         mgr = self.manager
-        self._run_frames([float(stamps[i]) for i in idxs],
-                         lambda pos: mgr.encode(rgbs[idxs[pos]], depths[idxs[pos]]),
+
+        def enc_at(pos):
+            rgb, depth = rgbs[idxs[pos]], depths[idxs[pos]]
+            return self._with_raw(mgr.encode(rgb, depth), rgb, depth)
+
+        self._run_frames([float(stamps[i]) for i in idxs], enc_at,
                          None if gt_poses is None else gt_poses[idxs[0]])
 
     def run_tum(self, dataset: TumDataset, max_frames: Optional[int] = None) -> dict:
@@ -166,7 +346,7 @@ class SlamPipeline:
 
         def enc_at(pos):
             _ts, rgb, depth = next(loader)
-            return mgr.encode(rgb, depth)
+            return self._with_raw(mgr.encode(rgb, depth), rgb, depth)
 
         try:
             self._run_frames([dataset.pairs[i][0] for i in idxs], self._in_order(enc_at), None)
@@ -196,8 +376,8 @@ class SlamPipeline:
         mgr = self.manager
 
         def enc_at(pos):
-            rgb, depth = pairs[idxs[pos]]
-            return mgr.encode(rgb.as_array(), depth.as_array())
+            rgb, depth = (m.as_array() for m in pairs[idxs[pos]])
+            return self._with_raw(mgr.encode(rgb, depth), rgb, depth)
 
         self._run_frames([pairs[i][0].stamp for i in idxs], self._in_order(enc_at), None)
 
@@ -220,7 +400,7 @@ class SlamPipeline:
 
             def enc_at(pos):
                 _ts, rgb, depth = source.load(idxs[pos])
-                return mgr.encode(rgb, depth)
+                return self._with_raw(mgr.encode(rgb, depth), rgb, depth)
         else:
             p = self.params
             skip0, step = p["skip_first_n_frames"], max(1, p["data_skip_step"])
@@ -234,7 +414,8 @@ class SlamPipeline:
 
             def enc_at(pos):
                 _ts, pts, cols = clouds[pos]
-                return mgr.encode(*cloud_to_rgbd(pts, cols, self.cam))
+                rgb, depth = cloud_to_rgbd(pts, cols, self.cam)
+                return self._with_raw(mgr.encode(rgb, depth), rgb, depth)
         if stamps:
             self._run_frames(stamps, self._in_order(enc_at), None)
 
@@ -262,7 +443,8 @@ class SlamPipeline:
                 if q < len(idxs) and q not in futs:
                     futs[q] = loads.submit(source.load, idxs[q])
             _ts, rgb, gl, gr = futs.pop(pos).result()
-            return mgr.encode(rgb, self.stereo_depth(gl, gr, stream), scale_depth=False)
+            depth = self.stereo_depth(gl, gr, stream)
+            return self._with_raw(mgr.encode(rgb, depth, scale_depth=False), rgb, depth)
 
         try:
             self._run_frames([source.pairs[i][0] for i in idxs], self._in_order(enc_at), None,
@@ -322,7 +504,13 @@ class SlamPipeline:
         in flight (the same wires, so the same result). Under the delta
         wire the encodes wait for their dispatch (the host mirror advances
         with each) and groups hold at most 2 frames, as in the JAX
-        package. ahead=False runs every encode on the calling thread."""
+        package. ahead=False runs every encode on the calling thread. While
+        paused no group forms: each frame goes to process_frame, which drops
+        it (or lets one through on get_one_frame); a dropped frame was read
+        and encoded, in order, but under the delta wire its encode is
+        undone, since the host mirror follows the codes the card decoded.
+        enc_at's items are (wire, raw) (_with_raw); with the live view on
+        the live outputs refresh after each step call, outside it."""
         p = self.params
         mgr = self.manager
         n = len(stamps)
@@ -346,15 +534,25 @@ class SlamPipeline:
         try:
             k = 0
             while k < n:
-                cpt = get_enc(k)
+                mark = mgr.wire_mark()
+                cpt, raw = get_enc(k)
                 g = min(ngroup, n - k)
-                if g >= 2 and mgr.can_group(g):
-                    cpts = [cpt] + [get_enc(k + m) for m in range(1, g)]
-                    self._process_group(cpts, [float(t) for t in stamps[k : k + g]])
+                if g >= 2 and not self.paused and mgr.can_group(g):
+                    items = [(cpt, raw)] + [get_enc(k + m) for m in range(1, g)]
+                    self._process_group([c for c, _ in items],
+                                        [float(t) for t in stamps[k : k + g]])
+                    if items[-1][1] is not None:  # the panes show the group's last frame
+                        self._live_frame = (*items[-1][1], mgr.n_nodes - 1)
+                    self._live_refresh(count=g)
                     k += g
                     continue
                 gt = gt0 if mgr.n_nodes == 0 else None
+                if raw is not None:
+                    self._last_raw = raw
+                done = self.n_processed
                 self.process_frame(None, None, float(stamps[k]), gt, compact=cpt)
+                if self.n_processed == done:  # dropped while paused
+                    mgr.wire_rewind(mark)
                 k += 1
         finally:
             if ex is not None:
@@ -523,21 +721,29 @@ class SlamPipeline:
         return export_graph_ply(path, mgr.poses(), mgr.host.edge_pairs,
                                 mgr.graph.edge_active.cpu().numpy(), mgr.host.edge_types)
 
-    def save_g2o(self, path) -> None:
+    def save_g2o(self, path, drain: bool = True) -> None:
         """The pose graph in g2o text format (saveG2OGraph): every node, the
-        fixed ones, the active edges."""
+        fixed ones, the active edges; the pending summaries drained first
+        unless drain is False (the live view, which reads the card's graph
+        as it stands, as the JAX package's save_g2o does)."""
         from ..graph.g2o_io import write_g2o
 
+        write_g2o(path, *self._g2o_graph(drain))
+
+    def _g2o_graph(self, drain: bool):
+        """save_g2o's graph read from the card: (poses, fixed ids, active
+        edges as (i, j, measurement, information))."""
         mgr = self.manager
-        mgr._drain_pending()
+        if drain:
+            mgr._drain_pending()
         g = mgr.graph
         n, m = mgr.n_nodes, mgr.n_edges
         fixed = np.nonzero(g.node_fixed[:n].cpu().numpy())[0].tolist()
         active = g.edge_active[:m].cpu().numpy()
         ei, ej = g.edge_i[:m].cpu().numpy(), g.edge_j[:m].cpu().numpy()
         meas, info = g.edge_meas[:m].cpu().numpy(), g.edge_info[:m].cpu().numpy()
-        write_g2o(path, mgr.poses(), fixed,
-                  [(int(ei[e]), int(ej[e]), meas[e], info[e]) for e in range(m) if active[e]])
+        return mgr.poses(), fixed, [(int(ei[e]), int(ej[e]), meas[e], info[e])
+                                    for e in range(m) if active[e]]
 
     @torch.inference_mode()
     def save_features(self, path) -> None:

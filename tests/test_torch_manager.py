@@ -19,7 +19,9 @@ for bit, the default path reads the card once more on a frame that
 retrieves, and the chunked retrieval equals its plain version on the card;
 the stereo disparity on the card equals the CPU's. MultiSequenceSlam's
 lockstep frames replayed as one CUDA graph equal the same frames stepped
-eagerly bit for bit, with no synchronizing call in a replayed frame.
+eagerly bit for bit, with no synchronizing call in a replayed frame. A
+set_param mid-run is a new CUDA-graph key: captured once more, and equal
+to the same change in an eager run.
 Imports no JAX, so it runs on the card:
 
     python -m pytest --noconftest tests/test_torch_manager.py -q
@@ -228,6 +230,63 @@ def test_grouped_replay_equals_eager_steps():
     assert d4 == d1 == 25 and k4 == k1 == (24, 0)  # (refine, Kabsch) launches
     assert s4 == s1
     np.testing.assert_allclose(p4, p1, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_set_param_mid_run_recaptures_and_equals_eager():
+    """A live set_param on the card (SlamPipeline.set_param, what the
+    /ctl/param endpoint calls): bench.py's configuration with 4 candidates
+    and no online optimize, 4 frames a step. observability_threshold raised
+    to 1.0 after frame 13 is a new step key: its first group runs eagerly,
+    its second is captured (one capture more) and the rest replay, with no
+    synchronizing call; every later frame's candidates are rejected and it
+    enters by its constant-position edge. The run equals the same run
+    stepped eagerly (no CUDA graph) with the same change at the same frame:
+    edges exact, poses bitwise."""
+    from rgbdslam_v2_tpu_torch.graph.host_graph import EDGE_CONST_POSITION
+
+    poses, rgbs, depths = _render(29)
+    stamps = np.arange(29) / 30.0
+    runs = {}
+    for eager in (False, True):
+        pipe = SlamPipeline(TUM_DEFAULT, ParameterServer(
+            {**BENCH, "tpu_candidate_batch": 4, "optimizer_skip_step": 100}))
+        mgr = pipe.manager
+        if eager:
+            mgr.step_graph = None
+        pipe.run_arrays(rgbs[:13], depths[:13], stamps[:13], gt_poses=poses)
+        sg = mgr.step_graph
+        before = sg and (sg.eager_groups, sg.captures, sg.replays)
+        assert pipe.set_param("observability_threshold", "1.0") == 1.0
+        group, replay_sites = pipe._process_group, []
+
+        def watched(*a, _group=group, _sg=sg, **kw):
+            state = _sg and (_sg.captures, _sg.eager_groups)
+            sites = _sync_sites(lambda: _group(*a, **kw))
+            if _sg and (_sg.captures, _sg.eager_groups) == state:
+                replay_sites.append(sites)
+
+        pipe._process_group = watched
+        pipe.run_arrays(rgbs[13:], depths[13:], stamps[13:])
+        mgr._drain_pending()
+        h = mgr.host
+        runs[eager] = (mgr.poses(), h.edge_active.copy(), h.edge_i.copy(), h.edge_j.copy(),
+                       list(h.edge_types), before, sg and (sg.eager_groups, sg.captures,
+                                                          sg.replays), replay_sites)
+    (p_g, *mirrors_g, before, after, sites), (p_e, *mirrors_e, _, _, _) = runs[False], runs[True]
+    # (eager groups, captures, replays; a captured group replays too):
+    # frames 1-12 in 3 groups (eager, captured, replayed), frames 13-28 in
+    # 4 groups of the new key (eager, captured, 2 replayed)
+    assert before == (1, 1, 2) and after == (2, 2, 5)
+    assert len(sites) == 2 and all(not s for s in sites), sites
+    np.testing.assert_array_equal(p_g, p_e)
+    for a, b in zip(mirrors_g, mirrors_e):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    active, ei, ej, types = mirrors_g
+    for nid in range(13, 29):
+        mine = [types[e] for e in np.nonzero(active)[0] if ej[e] == nid]
+        assert mine == [EDGE_CONST_POSITION], (nid, mine)
+    assert any(types[e] != EDGE_CONST_POSITION for e in np.nonzero(active)[0] if ej[e] < 13)
 
 
 FAMILIES = {"SIFTGPU": dict(feature_detector_type="SIFTGPU", feature_extractor_type="SIFTGPU",
@@ -622,8 +681,9 @@ def test_multi_sequence_replay_equals_eager():
     CUDA graph of the 3 step bodies equal the same frames stepped eagerly
     bit for bit (poses, edge mirrors, keyframes). A replayed lockstep frame
     makes no synchronizing call; detect launches 3 times a frame and refine
-    3 times a frame after the first, replays included. A new key (a
-    sequence's adapted FAST threshold) runs eagerly once and is captured."""
+    3 times a frame after the first, replays included. The key (the FAST
+    threshold stays fixed in MultiSequenceSlam) runs eagerly once and is
+    captured."""
     S, frames = 3, 14
     seqs = []
     for s in range(S):

@@ -71,6 +71,14 @@ def test_draw_feature_flow_matches_jax():
         np.testing.assert_array_equal(
             visualization.draw_feature_flow(rgb, uv_now, uv_prev, valid, inliers),
             jvis.draw_feature_flow(rgb, uv_now, uv_prev, valid, inliers))
+    # a frame's own keypoints (the live view's pane, drawn as the union of
+    # the dots): marks at the borders and rounding to the edge, and marks
+    # off the image (the loop)
+    own = rng.uniform(-0.45, [80.45, 60.45], (200, 2)).astype(np.float32)
+    own[:4] = [[0, 0], [79.6, 59.6], [80.2, 0], [39.5, 30.5]]
+    for uv, ok in ((own, rng.random(200) > 0.2), (uv_now, valid)):
+        np.testing.assert_array_equal(visualization.draw_feature_flow(rgb, uv, uv, ok),
+                                      jvis.draw_feature_flow(rgb, uv, uv, ok))
 
 
 @pytest.fixture(scope="module")

@@ -3,13 +3,15 @@ tests (tests/test_slam_multi.py), on JAX-rendered 160x120 orbits whose
 wires the JAX compact_frame encodes, fed to both packages.
 
 * Sequence i of MultiSequenceSlam against the port's single GraphManager
-  with tpu_seed = seed0 + i fed the same wires with add_frame (with and
-  without online optimizes): the same candidate slots, edge mirrors, edge
-  types and keyframes; poses bit for bit before the final optimize and
-  within 1e-5 after optimize(iterations=10).
-* Against the JAX MultiSequenceSlam on the same wires: accepted edges
-  within 25% per sequence (RANSAC draws differ, ROADMAP F1) and protocol
-  L4 < 0.05 m in both (the JAX test's bound).
+  with tpu_seed = seed0 + i, no adaptive FAST ladder and no online
+  optimize of its own, fed the same wires with add_frame (with and
+  without the slam-multi CLI's online optimizes, called on both at the same
+  frames): the same candidate slots, edge mirrors, edge types and
+  keyframes; poses bit for bit before the final optimize and within 1e-5
+  after optimize(iterations=10).
+* Against the JAX MultiSequenceSlam on the same wires (ROADMAP F25): per
+  sequence the same accepted edges and protocol L4 within 1e-4 m of the
+  JAX package's, and L4 < 0.05 m in both (the JAX test's bound).
 * A 2-shard CPU mesh equals no mesh bit for bit; the stacks are written
   in place through every sequence's views.
 * A poisoned consecutive edge is pruned and replaced by a constant-position
@@ -86,21 +88,30 @@ def _feed(ms, seqs, gt0=False):
 
 @pytest.mark.parametrize("skip", [1000, 3])
 def test_multi_matches_single_manager(pair, skip):
-    """skip: optimizer_skip_step (3: online optimizes every 3 frames)."""
-    ms = MultiSequenceSlam(Intrinsics(*CAM), 2, params=_params(ParameterServer, tpu_seed=0,
-                                                               optimizer_skip_step=skip),
-                           device="cpu")
-    _feed(ms, pair)
+    """skip: optimizer_skip_step, which add_frames ignores; with 3 the
+    caller optimizes every 3 frames, as the slam-multi CLI does."""
+    p = _params(ParameterServer, tpu_seed=0, optimizer_skip_step=skip)
+    ms = MultiSequenceSlam(Intrinsics(*CAM), 2, params=p, device="cpu")
+    T = len(pair[0][1])
+    for k in range(T):
+        ms.add_frames(np.stack([w[k] for _, w in pair]), np.full(2, k / 30.0))
+        if (k + 1) % skip == 0:
+            assert np.all(np.isnan(ms.optimize(iterations=p["online_optimizer_iterations"],
+                                               blocking=False)))
     ms._drain()
     before = ms.trajectories()
     chi2 = ms.optimize(iterations=10)
     after = ms.trajectories()
     assert np.all(np.isfinite(chi2))
     for i in (0, 1):
+        # a single manager without the ladder and the online optimize
         mgr = GraphManager(Intrinsics(*CAM), _params(ParameterServer, tpu_seed=i,
-                                                     optimizer_skip_step=skip), device="cpu")
-        for k in range(len(pair[i][1])):
+                                                     adjuster_max_iterations=0), device="cpu")
+        for k in range(T):
             mgr.add_frame(None, None, k / 30.0, compact=pair[i][1][k])
+            if (k + 1) % skip == 0:
+                mgr.optimize(iterations=p["online_optimizer_iterations"], blocking=False,
+                             pcg_iters=64)
         mgr._drain_pending()
         h, sh = mgr.host, ms.seq[i].host
         n = mgr.n_edges
@@ -114,6 +125,17 @@ def test_multi_matches_single_manager(pair, skip):
         np.testing.assert_allclose(after[i], mgr.poses(), rtol=0, atol=1e-5)
 
 
+# the quad's settings beside the JAX test's: an optimize cadence and a
+# descriptor family, both of which the JAX MultiSequenceSlam ignores in
+# add_frames and in its default extractor (ORB)
+QUAD = dict(optimizer_skip_step=3, feature_extractor_type="BRISK")
+# protocol L4 against the JAX package, per sequence: sequence 1's RANSAC
+# draws (ROADMAP F1) reach other consensus sets on 7 of its 30 accepted
+# edges (4e-3-4.1e-2 m apart), which moves its L4 by 1.07e-3 m; the other
+# sequences agree within 2e-7 m
+L4_TOL, L4_TOL_AGREEING = 1.1e-3, 1e-5
+
+
 @pytest.fixture(scope="module")
 def quad_runs(quad):
     """The 4 sequences through the JAX and the port's MultiSequenceSlam
@@ -125,7 +147,7 @@ def quad_runs(quad):
                                   ("torch", MultiSequenceSlam, ParameterServer,
                                    dict(device="cpu"))):
         ms = cls(JIntrinsics(*CAM) if name == "jax" else Intrinsics(*CAM), 4,
-                 params=_params(params), **kw)
+                 params=_params(params, **QUAD), **kw)
         _feed(ms, quad, gt0=True)
         levels, ate = ms.evaluation_protocol(gt_stamps=gt_stamps, gt_xyz=gt_xyz)
         out[name] = (levels, ate, ms.statistics())
@@ -133,6 +155,10 @@ def quad_runs(quad):
 
 
 def test_multi_against_jax(quad_runs):
+    """F25: the port's MultiSequenceSlam computes what the JAX package's
+    does (no online optimize inside add_frames, the ORB extractor): per
+    sequence the same accepted edges, and protocol L4 within L4_TOL, three
+    sequences within L4_TOL_AGREEING."""
     jl, jate, jst = quad_runs["jax"]
     tl, tate, tst = quad_runs["torch"]
     assert set(tl) == set(jl) == {0, 1, 2, 3, 4}
@@ -141,14 +167,15 @@ def test_multi_against_jax(quad_runs):
         assert np.all(np.isfinite(ate[4])) and float(np.max(ate[4])) < 0.05, ate
     assert [sorted(s) for s in tst] == [sorted(s) for s in jst]
     for js, ts in zip(jst, tst):
-        j_acc = js["sequential_edges"] + js["loop_edges"]
-        t_acc = ts["sequential_edges"] + ts["loop_edges"]
-        assert abs(t_acc - j_acc) <= 0.25 * j_acc, (js, ts)
+        assert (ts["sequential_edges"], ts["loop_edges"]) == (js["sequential_edges"],
+                                                              js["loop_edges"]), (js, ts)
         assert ts["nodes"] == 10 and ts["active_edges"] >= 9
+    diff = np.abs(tate[4] - jate[4])
+    assert diff.max() <= L4_TOL and np.sort(diff)[2] <= L4_TOL_AGREEING, (tate[4], jate[4])
 
 
 def test_mesh_equals_no_mesh(quad, quad_runs):
-    ms = MultiSequenceSlam(Intrinsics(*CAM), 4, params=_params(ParameterServer),
+    ms = MultiSequenceSlam(Intrinsics(*CAM), 4, params=_params(ParameterServer, **QUAD),
                            mesh=candidate_mesh(2, platform="cpu"))
     assert [len(sh.seqs) for sh in ms.shards] == [2, 2]
     _feed(ms, quad, gt0=True)

@@ -78,8 +78,10 @@ def test_slice_matches_jax_pipeline(sequence, tmp_path):
 
 @pytest.mark.parametrize("override", [
     # tpu_mesh_devices > 1 runs since the sharded compare was ported
-    # (tests/test_torch_parallel.py); an unknown wire format takes its place
-    {"start_paused": True}, {"tpu_ingest_format": "jpeg"}, {"tpu_approx_select": True},
+    # (tests/test_torch_parallel.py), and start_paused since the run
+    # controls were (tests/test_torch_live_controls.py): an unknown wire
+    # format and an unknown descriptor store take their places
+    {"tpu_descriptor_dtype": "fp8"}, {"tpu_ingest_format": "jpeg"}, {"tpu_approx_select": True},
 ])
 def test_config_outside_the_slice_raises(override):
     name = next(iter(override))

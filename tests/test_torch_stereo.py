@@ -13,7 +13,8 @@ conversion, bitwise), and one the JAX package writes (cv2 PNGs) reads
 through the port's. run_stereo on tests/test_stereo.py's 12 frames keeps
 its bound (ATE below 0.08 m). Through the CLI, synthetic --stereo writes
 a directory that run --stereo-dir reads, with --evaluate, --landmark-ba,
---save-mesh and -p global_loop_candidates=2; only --serve still exits 2.
+--save-mesh and -p global_loop_candidates=2, and with --serve the live
+view and its controls.
 """
 import json
 
@@ -144,7 +145,33 @@ def test_cli_stereo_landmark_ba_mesh_retrieval(tmp_path, capsys):
     assert "saved mesh.ply" in text and (out / "mesh.ply").stat().st_size > 1000
 
 
-def test_cli_serve_still_exits_2(tmp_path, capsys):
-    assert cli.main(["run", "--tum-dir", str(tmp_path), "--out", str(tmp_path / "o"),
-                     "--serve", "8000", "--device", "cpu"]) == 2
-    assert "27b" in capsys.readouterr().err
+def test_cli_stereo_dir_serves_live_view(jax_pairs, tmp_path, capsys, monkeypatch):
+    """run --stereo-dir with --serve 0 (ROADMAP item 27b, which exited 2
+    before): the live outputs refresh every 2 frames beside the run's, the
+    depth pane from the stereo depth; during the final linger the server
+    it started answers the page with the run controls, the panes and
+    /ctl/pause."""
+    import urllib.request
+
+    poses, lefts, rights = jax_pairs
+    stereo_input.save_as_stereo_dataset(tmp_path / "seq", poses[:6], lefts[:6], rights[:6])
+    served = {}
+
+    def linger(seconds):  # the CLI's wait for the page's last poll
+        url = json.loads(capsys.readouterr().err.strip().splitlines()[-1])["url"]
+        served["page"] = urllib.request.urlopen(url, timeout=10).read()
+        served["depth"] = urllib.request.urlopen(url + "depth.png", timeout=10).read()
+        req = urllib.request.Request(url + "ctl/pause", method="POST")
+        served["pause"] = json.loads(urllib.request.urlopen(req, timeout=10).read())
+
+    monkeypatch.setattr(cli.time, "sleep", linger)
+    out = tmp_path / "out"
+    assert cli.main(["run", "--stereo-dir", str(tmp_path / "seq"), "--out", str(out), "--camera",
+                     ",".join(map(str, CAM)), "--serve", "0", "--serve-interval", "2",
+                     "--device", "cpu", "-p", f"stereo_baseline={BASELINE}", *CLI_PARAMS]) == 0
+    for name in ("estimate.txt", "graph.g2o", "frame.png", "depth.png"):
+        assert (out / name).is_file(), name
+    assert len(np.loadtxt(out / "estimate.txt")) == 6
+    assert b"bPause" in served["page"] and b"const DATA" in served["page"]
+    assert served["depth"][:8] == b"\x89PNG\r\n\x1a\n"
+    assert served["pause"] == {"status": "paused"}

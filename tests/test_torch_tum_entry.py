@@ -260,13 +260,15 @@ def test_cli_run_without_evaluate_writes_estimate(tmp_path, port_dir, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--stereo-dir", None], "26b"), (["--save-mesh"], "26b"), (["--landmark-ba"], "25"),
-    (["--serve", "8765"], "27b"),
+    (["--serve", "0", "--serve-interval", "2"], "27b"),
 ])
-def test_cli_unported_options_exit_2(tmp_path, port_dir, argv, item, capsys):
-    """Of the JAX CLI's run options only --serve (ROADMAP Queue 1 item 27b)
-    is still outside the port: it exits 2 and names its item. The options
-    of items 25 and 26b run: --stereo-dir on a directory that synthetic
-    --stereo wrote, --save-mesh and --landmark-ba on a TUM directory."""
+def test_cli_ported_options_run(tmp_path, port_dir, argv, item, capsys, monkeypatch):
+    """The JAX CLI's run options that exited 2 until their ROADMAP Queue 1
+    item was ported run: --stereo-dir on a directory that synthetic
+    --stereo wrote, --save-mesh and --landmark-ba on a TUM directory, and
+    --serve (item 27b), which writes the live view's outputs beside the
+    run's and names the URL it serves."""
+    monkeypatch.setattr(cli.time, "sleep", lambda s: None)  # the final linger
     src = ["--tum-dir", str(port_dir)]
     if argv[0] == "--stereo-dir":
         assert cli.main(["synthetic", "--out", str(tmp_path / "s"), "--frames", "4", "--small",
@@ -276,10 +278,11 @@ def test_cli_unported_options_exit_2(tmp_path, port_dir, argv, item, capsys):
                      "130,130,80,60,160,120", "--max-frames", "4", "--device", "cpu",
                      *RECIPE_FLAGS])
     err = capsys.readouterr().err
+    assert code == 0 and "ROADMAP" not in err, err
     if item == "27b":
-        assert code == 2 and f"ROADMAP Queue 1 item {item})" in err
-    else:
-        assert code == 0 and "ROADMAP" not in err, err
+        assert json.loads(err.strip().splitlines()[-1])["url"].startswith("http://127.0.0.1:")
+        for name in ("estimate.txt", "graph.g2o", "frame.png", "depth.png"):
+            assert (tmp_path / "o" / name).is_file(), name
 
 
 def test_cli_synthetic_stereo_and_params(tmp_path, capsys):

@@ -6,8 +6,8 @@ timed on the host clock between two synchronizations. Prints one JSON line
 with the fps, the frames timed, the statistics and the retrievals run.
 
 chip_smoke.py phase 16 saves the bench frames (poses, rgbs, depths,
-stamps) into a directory and runs this script once a configuration,
-alternating, so that each fps comes from a clean process.
+stamps) into a directory and runs this script once a configuration, so
+that each fps comes from a clean process.
 
 Usage: python3 tools/make_pipe_fps.py FRAMES_DIR [--set name=value ...]
 """

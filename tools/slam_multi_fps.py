@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time parallel/slam_multi.MultiSequenceSlam with make_pipe's parameters
-(chip_smoke.multi_params) in a process of its own, on lockstep frames saved
-as .npy files: wires.npy (T, S, L) u8 from MultiSequenceSlam.compact,
-stamps.npy (T,) and gt0.npy (S, 4, 4), the first frames' poses.
+(chip_smoke.multi_params), optimized online every optimizer_skip_step
+frames as the slam-multi CLI does, in a process of its own, on lockstep
+frames saved as .npy files: wires.npy (T, S, L) u8 from
+MultiSequenceSlam.compact, stamps.npy (T,) and gt0.npy (S, 4, 4), the
+first frames' poses.
 
 The first WARMUP lockstep frames run untimed (the eager first step and the
 capture among them); the frames after them, except the last --profile
@@ -49,10 +51,13 @@ def main() -> None:
     d = Path(args.frames_dir)
     wires, stamps, gt0 = (np.load(d / f"{k}.npy") for k in ("wires", "stamps", "gt0"))
     T, S = wires.shape[:2]
-    ms = MultiSequenceSlam(TUM_DEFAULT, S, params=multi_params())
+    p = multi_params()
+    ms = MultiSequenceSlam(TUM_DEFAULT, S, params=p)
 
     def lockstep(k):
         ms.add_frames(wires[k], np.full(S, stamps[k]), gt_poses=gt0 if k == 0 else None)
+        if (k + 1) % p["optimizer_skip_step"] == 0:  # the slam-multi CLI's schedule
+            ms.optimize(iterations=p["online_optimizer_iterations"], blocking=False)
 
     for k in range(WARMUP):
         lockstep(k)
