@@ -311,8 +311,10 @@ has an entry of its own, launched on phase 14's refinement runs); the last
 line is {"ok": true, "device": {...}}. --frames N (at least SERVE_FRAMES,
 120: phase 18's control sequence) shortens phases 3-17 to N frames each.
 
-bench_params() and render_bench() hold the cell's configuration and data;
-tools/profile_torch_port.py imports them.
+bench_params() and render_bench() hold the cell's configuration and data.
+A traced window of the benchmark's cells, kernel by kernel with the
+program's spans beside the kernels, is `python3 slambench/run.py
+--workload <cell> --seed <n> --seconds 20 --trace 1`.
 """
 from __future__ import annotations
 

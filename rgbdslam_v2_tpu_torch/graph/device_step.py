@@ -32,7 +32,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import math
-import time
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -41,6 +40,7 @@ import torch
 from ..core import alignment
 from ..ops import detect, registration
 from ..optim.pose_graph import GraphState
+from ..utils import timing
 from .compare import compare_to_candidates
 from .ingest import prepare_and_extract, prepare_and_extract_wire
 from .node_store import NodeStore
@@ -351,66 +351,68 @@ class CapturedSteps:
     def __init__(self, device: torch.device, generators):
         self.device = device
         self.generators = list(generators)
-        self._seen = set()
+        self._seen: Dict[tuple, int] = {}  # key -> its number, in the order first seen
         self._graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
         self.replays = 0
         self.eager_groups = 0
-        self.replay_s = 0.0  # host seconds inside replay calls (graph launches)
-        self.capture_s = 0.0  # host seconds inside captures
+        self.replay_s = 0.0  # host seconds inside replay calls (spans step.launch)
+        self.capture_s = 0.0  # host seconds inside captures (spans step.capture)
 
     def launch(self, key: tuple, host_flat: torch.Tensor, body) -> torch.Tensor:
         """body(flat) on a device copy of `host_flat` (pinned): eagerly,
         captured or replayed, as the key has been seen; returns its output
-        in a tensor of its own."""
+        in a tensor of its own. Spans step.eager, step.capture and
+        step.launch (the replay call, which replay_s sums), each with the
+        key's number."""
         cap = self._graphs.get(key)
         if cap is None and key not in self._seen:
-            self._seen.add(key)
-            self.eager_groups += 1
-            flat = host_flat.to(self.device, non_blocking=True)
-            side = torch.cuda.Stream(self.device)
-            torch.cuda.synchronize(self.device)
-            with torch.cuda.stream(side):
-                out = body(flat)
-            torch.cuda.synchronize(self.device)
-            return out
+            with timing.span("step.eager", self._seen.setdefault(key, len(self._seen))):
+                self.eager_groups += 1
+                flat = host_flat.to(self.device, non_blocking=True)
+                side = torch.cuda.Stream(self.device)
+                torch.cuda.synchronize(self.device)
+                with torch.cuda.stream(side):
+                    out = body(flat)
+                torch.cuda.synchronize(self.device)
+                return out
         if cap is None:
             cap = self._capture(key, host_flat, body)
         cap.flat.copy_(host_flat, non_blocking=True)
-        t0 = time.perf_counter()
-        cap.graph.replay()
-        self.replay_s += time.perf_counter() - t0
+        with timing.span("step.launch", self._seen[key]) as sp:
+            cap.graph.replay()
+        self.replay_s += sp.elapsed
         self.replays += 1
         for mod, n_launches in zip(_COUNTED, cap.launches):
             mod.LAUNCHES += n_launches
         return cap.out.clone()
 
     def _capture(self, key, host_flat, body) -> _Captured:
-        t0 = time.perf_counter()
-        cap = _Captured(torch.empty(host_flat.shape, dtype=torch.uint8, device=self.device))
-        for gen in self.generators:
-            cap.graph.register_generator_state(gen)
-        counts = [mod.LAUNCHES for mod in _COUNTED]
-        # Dead reference cycles (an earlier pipeline, say) hold device and
-        # pinned host tensors; a collection inside the capture frees them
-        # with calls a capturing stream forbids, and the capture fails. So
-        # collect first and let no collection run until the capture ends.
-        gc.collect()
-        gc_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(cap.graph):
-                cap.out = body(cap.flat)
-        finally:
-            if gc_on:
-                gc.enable()
-            # capturing records the kernels without launching them
-            cap.launches = tuple(mod.LAUNCHES - c for mod, c in zip(_COUNTED, counts))
-            for mod, c in zip(_COUNTED, counts):
-                mod.LAUNCHES = c
+        with timing.span("step.capture", self._seen[key]) as sp:
+            cap = _Captured(torch.empty(host_flat.shape, dtype=torch.uint8, device=self.device))
+            for gen in self.generators:
+                cap.graph.register_generator_state(gen)
+            counts = [mod.LAUNCHES for mod in _COUNTED]
+            # Dead reference cycles (an earlier pipeline, say) hold device and
+            # pinned host tensors; a collection inside the capture frees them
+            # with calls a capturing stream forbids, and the capture fails. So
+            # collect first and let no collection run until the capture ends.
+            gc.collect()
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(cap.graph):
+                    cap.out = body(cap.flat)
+            finally:
+                if gc_on:
+                    gc.enable()
+                # capturing records the kernels without launching them
+                cap.launches = tuple(mod.LAUNCHES - c for mod, c in zip(_COUNTED, counts))
+                for mod, c in zip(_COUNTED, counts):
+                    mod.LAUNCHES = c
         self._graphs[key] = cap
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        self.capture_s += sp.elapsed
         return cap
 
 

@@ -90,6 +90,15 @@ GraphManager per sequence over views of its stacked tensors (``state=``)
 and drives its keep-all halves, ``_frame_inputs`` and ``_frames_queued``,
 around one lockstep step.
 
+Spans (``utils.timing``): ``encode``, ``step.inputs``, ``step.launch``
+(the eager step call; on the card ``StepGraph``'s replay), ``drain.wait``,
+``drain.apply``, ``optimize.online`` / ``optimize.blocking``; and the
+latency ``pose_landed`` of every node, from the token the caller opened
+when it took the frame (``timing.begin``; else add_frame or
+add_frame_group opens one) to the moment the host learns its pose: its
+summary's ``apply_summary``, or at once for the first node and on the
+host-decision path.
+
 Configuration outside the port raises NotImplementedError.
 """
 from __future__ import annotations
@@ -115,6 +124,7 @@ from ..ops import dct_wire
 from ..ops.emm import emm_pool_maps
 from ..ops.matching import match_descriptors
 from ..ops.sift import DESC_DIM
+from ..utils import timing
 from .compare import CompareResult, CompareSummary, compare_to_candidates
 from .device_step import StepGraph, StepSummary, commit_node, group_views, pack_group, slam_stepN
 from .host_graph import (EDGE_CONST_POSITION, EDGE_LOOP, EDGE_ODOMETRY, EDGE_SEQUENTIAL,
@@ -347,6 +357,9 @@ class GraphManager:
         self.retrieval_hits = 0
         self.step_graph = (StepGraph(self.store, self.graph, self.generator, self.wire_state)
                            if self.device.type == "cuda" and state is None else None)
+        # node id -> the pose_landed token of its frame, until the host
+        # learns the node's pose
+        self._landing: dict = {}
 
     def set_odometry_provider(self, provider) -> None:
         """Attach an OdometryProvider (use_robot_odom, use_robot_odom_only)."""
@@ -423,13 +436,14 @@ class GraphManager:
         it is the wire of the next frame to be dispatched: call it once a
         frame, in order, just before the frame's add_frame or
         add_frame_group (the host mirror advances with each call)."""
-        if scale_depth:
-            depth = maybe_scale_depth(depth, self.params["depth_scaling_factor"])
-        if self.wire_delta and self.n_nodes > 0 and self.mapping_enabled and fast_path(
-                self.params):
-            return self._wire_encode(rgb, depth)
-        return compact_frame(rgb, depth, self.emm_stride, self.depth_bits, self.dct,
-                             self.gray_bits, self.ingest_fmt)
+        with timing.span("encode"):
+            if scale_depth:
+                depth = maybe_scale_depth(depth, self.params["depth_scaling_factor"])
+            if self.wire_delta and self.n_nodes > 0 and self.mapping_enabled and fast_path(
+                    self.params):
+                return self._wire_encode(rgb, depth)
+            return compact_frame(rgb, depth, self.emm_stride, self.depth_bits, self.dct,
+                                 self.gray_bits, self.ingest_fmt)
 
     def _wire_encode(self, rgb, depth) -> np.ndarray:
         """The delta wire of a fast-path frame: a P wire against the mirror
@@ -482,22 +496,29 @@ class GraphManager:
                               ground_truth_pose)
 
     def add_frame(self, rgb, depth, timestamp: float,
-                  ground_truth_pose: Optional[np.ndarray] = None, compact=None) -> bool:
+                  ground_truth_pose: Optional[np.ndarray] = None, compact=None,
+                  token=None) -> bool:
         """Process one frame (rgb/depth, or a pre-packed wire from encode);
         returns True when the node entered the graph (in localization mode:
-        when the frame was localized)."""
+        when the frame was localized). token: the frame's pose_landed,
+        opened (timing.begin) when the caller took it; else opened here."""
+        token = token or timing.begin("pose_landed")
+        new_id = self.n_nodes
         if compact is None:
             compact = self.encode(rgb, depth)
-        new_id = self.n_nodes
         if new_id >= self.n_cap:
             raise RuntimeError("node capacity exceeded")
         if new_id == 0:
             self._add_first_frame(self._to_device(compact), timestamp, ground_truth_pose)
+            timing.end(token)
             return True
         if self.mapping_enabled and fast_path(self.params):
-            self._add_frames_device([compact], [timestamp], [new_id])
+            self._add_frames_device([compact], [timestamp], [new_id], [token])
             return True
-        return self._add_frame_host(self._to_device(compact), timestamp, new_id)
+        took = self._add_frame_host(self._to_device(compact), timestamp, new_id)
+        if self.n_nodes > new_id:  # the host decided: the pose is known
+            timing.end(token)
+        return took
 
     def _add_first_frame(self, packed, timestamp, ground_truth_pose):
         """firstNode (graph_manager.cpp:360-402): fixed at GT or identity."""
@@ -742,26 +763,28 @@ class GraphManager:
                 and self.n_edges + n * (self.cand_batch + 1) <= self.e_cap)
 
     @torch.inference_mode()
-    def add_frame_group(self, compacts, tss) -> None:
+    def add_frame_group(self, compacts, tss, tokens=None) -> None:
         """N consecutive frames in ONE step call (tpu_frames_per_step=N;
         on the card one CUDA graph replay). Frame k selects its candidates
         against host state that already holds frames < k (their timestamps;
         adjacency stays one drain stale, as always). The caller checks
-        can_group(len(compacts)) first."""
-        n = len(compacts)
+        can_group(len(compacts)) first. tokens: the frames' pose_landed,
+        as add_frame's token."""
+        tokens = tokens or [timing.begin("pose_landed") for _ in compacts]
         self._add_frames_device(list(compacts), list(tss),
-                                [self.n_nodes + k for k in range(n)])
+                                [self.n_nodes + k for k in range(len(compacts))], tokens)
 
-    def _add_frames_device(self, compacts, tss, ids) -> None:
+    def _add_frames_device(self, compacts, tss, ids, tokens) -> None:
         B, n = self.cand_batch, len(ids)
         compacts, host_flat, slots, e_starts, L = self._frame_inputs(
             compacts, tss, ids, pin=self.device.type == "cuda")
         if self.step_graph is not None and n > 1:
             sums = self.step_graph.run(host_flat, n, L, B, self._step_cfg())
         else:
-            flat = host_flat.to(self.device, non_blocking=True)
-            sums = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
-                              self.generator, self.wire_state, **self._step_cfg())
+            with timing.span("step.launch", ids[0]):
+                flat = host_flat.to(self.device, non_blocking=True)
+                sums = slam_stepN(self.store, self.graph, group_views(flat, n, L, B),
+                                  self.generator, self.wire_state, **self._step_cfg())
         if self.wire_delta:
             self._wire_synced = True
         self._step_calls += 1
@@ -773,7 +796,7 @@ class GraphManager:
         else:
             host, event = self._start_copy(sums)
             rows = [(host[k], event) for k in range(n)]
-        self._frames_queued(compacts, tss, ids, slots, e_starts, rows)
+        self._frames_queued(compacts, tss, ids, slots, e_starts, rows, tokens)
 
     def _frame_inputs(self, compacts, tss, ids, pin: bool):
         """Before the step of frames `ids`: their candidate slots (frame k
@@ -781,45 +804,48 @@ class GraphManager:
         reserved, and the step's inputs packed into one flat host buffer
         (pinned when `pin`). Returns (compacts as the step takes them,
         buffer, slots, first edge slots, wire length)."""
-        p = self.params
-        B = self.cand_batch
-        n = len(ids)
-        h = self.host
-        if self.n_edges + n * (B + 1) > self.e_cap:
-            raise RuntimeError("edge capacity exceeded")
-        slots, added = [], 0
-        try:  # append frames < k for frame k's selection, roll back after
-            for k in range(n):
-                appearance = None
-                if p["global_loop_candidates"] > 0 and self._retrieval is not None:
-                    appearance = lambda out, new_id=ids[k]: self._retrieved_hits(out, new_id)
-                slots.append(h.frame_slots(ids[k], tss[k], B, appearance))
-                if k < n - 1:
-                    h.timestamps.append(tss[k])
-                    h.n_nodes += 1
-                    added += 1
-        finally:
-            del h.timestamps[len(h.timestamps) - added:]
-            h.n_nodes -= added
-        e_starts = [h.reserve_edges(B) for _ in range(n)]
-        intra = None
-        if self.wire_delta:
-            compacts, intra = self._delta_wires(compacts)
-        wires = np.stack(compacts)
-        host_flat = pack_group(wires, ids, [s[0] for s in slots], [s[1] for s in slots],
-                               [s[2] for s in slots], e_starts, pin=pin, intra=intra)
-        return compacts, host_flat, slots, e_starts, wires.shape[1]
+        with timing.span("step.inputs", ids[0]):
+            p = self.params
+            B = self.cand_batch
+            n = len(ids)
+            h = self.host
+            if self.n_edges + n * (B + 1) > self.e_cap:
+                raise RuntimeError("edge capacity exceeded")
+            slots, added = [], 0
+            try:  # append frames < k for frame k's selection, roll back after
+                for k in range(n):
+                    appearance = None
+                    if p["global_loop_candidates"] > 0 and self._retrieval is not None:
+                        appearance = lambda out, new_id=ids[k]: self._retrieved_hits(out, new_id)
+                    slots.append(h.frame_slots(ids[k], tss[k], B, appearance))
+                    if k < n - 1:
+                        h.timestamps.append(tss[k])
+                        h.n_nodes += 1
+                        added += 1
+            finally:
+                del h.timestamps[len(h.timestamps) - added:]
+                h.n_nodes -= added
+            e_starts = [h.reserve_edges(B) for _ in range(n)]
+            intra = None
+            if self.wire_delta:
+                compacts, intra = self._delta_wires(compacts)
+            wires = np.stack(compacts)
+            host_flat = pack_group(wires, ids, [s[0] for s in slots], [s[1] for s in slots],
+                                   [s[2] for s in slots], e_starts, pin=pin, intra=intra)
+            return compacts, host_flat, slots, e_starts, wires.shape[1]
 
-    def _frames_queued(self, compacts, tss, ids, slots, e_starts, rows) -> None:
+    def _frames_queued(self, compacts, tss, ids, slots, e_starts, rows, tokens) -> None:
         """After the step of frames `ids` is queued (and counted in
-        _step_calls): their summaries `rows` pend for a drain, the host
-        learns the frames, and the retrieval, the starvation alert, the
-        drains and the online optimize run as their rules say."""
+        _step_calls): their summaries `rows` pend for a drain (their
+        pose_landed `tokens` with them), the host learns the frames, and
+        the retrieval, the starvation alert, the drains and the online
+        optimize run as their rules say."""
         p = self.params
         h = self.host
         n = len(ids)
         for k in range(n):
             self._pending.append((ids[k], slots[k][0], e_starts[k], rows[k]))
+            self._landing[ids[k]] = tokens[k]
             h.n_nodes += 1
             h.timestamps.append(tss[k])
         if p["global_loop_candidates"] > 0 and ids[-1] >= 8 and self._retrieval is None:
@@ -909,7 +935,8 @@ class GraphManager:
         if event is None or event.query():
             return
         self.copy_waits += 1
-        event.synchronize()
+        with timing.span("drain.wait"):
+            event.synchronize()
         if lagged and self._step_done is not None and self._step_done.query():
             self.idle_waits += 1
 
@@ -1014,7 +1041,8 @@ class GraphManager:
         if host is None:
             on_device = [e[3] for e in pend if isinstance(e[3], torch.Tensor)]
             self.blocking_pulls += bool(on_device)
-            pulled = iter(torch.stack(on_device).cpu() if on_device else ())
+            with timing.span("drain.wait"):
+                pulled = iter(torch.stack(on_device).cpu() if on_device else ())
             rows = []
             for e in pend:
                 if isinstance(e[3], torch.Tensor):
@@ -1027,12 +1055,14 @@ class GraphManager:
             self._wait(event, lagged)
             rows = host
         fallbacks = []
-        for (new_id, padded, edge_start, _), row in zip(pend, rows):
-            s = StepSummary.unpack(row.numpy(), len(padded))
-            fb = self.host.apply_summary(new_id, padded, edge_start, s)
-            if fb is not None:
-                fallbacks.append(fb)
-            self._adapt_detector(s.n_valid_kp)
+        with timing.span("drain.apply"):
+            for (new_id, padded, edge_start, _), row in zip(pend, rows):
+                s = StepSummary.unpack(row.numpy(), len(padded))
+                fb = self.host.apply_summary(new_id, padded, edge_start, s)
+                timing.end(self._landing.pop(new_id, None))
+                if fb is not None:
+                    fallbacks.append(fb)
+                self._adapt_detector(s.n_valid_kp)
         return fallbacks
 
     def _dispatch_retro_rescue(self, fallbacks) -> None:
@@ -1159,37 +1189,38 @@ class GraphManager:
         on the keep-all fast path, whose frames never wait, the online call
         runs all its iterations with those after convergence masked (the
         same poses) and reads nothing."""
-        self._drain_pending(keep_newest=0 if blocking else 2)
-        p = self.params
-        read = blocking or not (self.mapping_enabled and fast_path(p))
-        try:
-            if (p["pose_relative_to"] == "inaffected" and self.mapping_enabled
-                    and 1 < self._nodes_opt_watermark < self.n_nodes):
-                return self._optimize_inaffected(
-                    iterations or p["optimizer_iterations"], blocking,
-                    pcg_iters if pcg_iters is not None else 24, read)
-            solver = self._solver(self.n_cap)
-            self._apply_fixation()
-            chi2, n_it = optimize(
-                self.graph, iterations=iterations or p["optimizer_iterations"],
-                huber_delta=p["huber_delta"],
-                pcg_iters=pcg_iters if pcg_iters is not None else 64, solver=solver,
-                n_nodes=self.n_nodes, n_edges=self.n_edges, read_convergence=read)
-            if blocking:
-                # the JAX package reports iterations of blocking calls only
-                self.last_optimize_iters = int(n_it)
-                return float(chi2)
-            return float("nan")
-        finally:
-            self.nodes_since_optimize = 0
-            # the reference's rule (rgbdslam_v2_tpu/graph/manager.py, the end
-            # of GraphManager.optimize): the watermark stops at the oldest
-            # still-pending node. Batches a pipelined drain left staged and
-            # unread are not counted, so their nodes stay fixed in later
-            # inaffected optimizes; kept for parity, and a fix belongs in
-            # both packages at once (ROADMAP F10)
-            pending = [e[0] for e in self._pending]
-            self._nodes_opt_watermark = min(pending) if pending else self.n_nodes
+        with timing.span("optimize.blocking" if blocking else "optimize.online"):
+            self._drain_pending(keep_newest=0 if blocking else 2)
+            p = self.params
+            read = blocking or not (self.mapping_enabled and fast_path(p))
+            try:
+                if (p["pose_relative_to"] == "inaffected" and self.mapping_enabled
+                        and 1 < self._nodes_opt_watermark < self.n_nodes):
+                    return self._optimize_inaffected(
+                        iterations or p["optimizer_iterations"], blocking,
+                        pcg_iters if pcg_iters is not None else 24, read)
+                solver = self._solver(self.n_cap)
+                self._apply_fixation()
+                chi2, n_it = optimize(
+                    self.graph, iterations=iterations or p["optimizer_iterations"],
+                    huber_delta=p["huber_delta"],
+                    pcg_iters=pcg_iters if pcg_iters is not None else 64, solver=solver,
+                    n_nodes=self.n_nodes, n_edges=self.n_edges, read_convergence=read)
+                if blocking:
+                    # the JAX package reports iterations of blocking calls only
+                    self.last_optimize_iters = int(n_it)
+                    return float(chi2)
+                return float("nan")
+            finally:
+                self.nodes_since_optimize = 0
+                # the reference's rule (rgbdslam_v2_tpu/graph/manager.py, the end
+                # of GraphManager.optimize): the watermark stops at the oldest
+                # still-pending node. Batches a pipelined drain left staged and
+                # unread are not counted, so their nodes stay fixed in later
+                # inaffected optimizes; kept for parity, and a fix belongs in
+                # both packages at once (ROADMAP F10)
+                pending = [e[0] for e in self._pending]
+                self._nodes_opt_watermark = min(pending) if pending else self.n_nodes
 
     def _add_const_position_edge(self, i: int, j: int) -> None:
         if self.n_edges >= self.e_cap:

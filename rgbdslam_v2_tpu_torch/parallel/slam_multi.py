@@ -37,6 +37,15 @@ per sequence on its own graph.
   JAX CLI does).
 * Mesh: the sequences split into contiguous blocks over its devices, as
   P("c") does; the result equals mesh=None.
+* Spans (``utils.timing``): ``add_frames`` (with the node id),
+  ``optimize.online`` / ``optimize.blocking`` and inside them
+  ``optimize.seq`` (each sequence's LM loop, with its index),
+  ``protocol``; each sequence's ``step.inputs``, ``drain.wait`` and
+  ``drain.apply`` as GraphManager's; the lockstep step's ``step.pack``
+  (its configurations, input buffer and key), ``step.eager`` /
+  ``step.capture`` / ``step.launch``, and ``step.queued`` (the summaries'
+  copy and every sequence's bookkeeping). Every sequence's frame opens
+  its ``pose_landed`` when add_frames is called.
 
 Scope: the keep-all device step, whatever keep_all_nodes and the motion
 gates say, as in the JAX package (the setting of the reference's benchmark
@@ -62,6 +71,7 @@ from ..graph.manager import GraphManager, descriptor_layout
 from ..graph.node_store import NodeStore
 from ..models.orb import OrbExtractor
 from ..optim.pose_graph import GraphState, make_graph_state, optimize
+from ..utils import timing
 from .mesh import DeviceMesh, on_device
 
 logger = logging.getLogger("rgbdslam.parallel")
@@ -105,7 +115,8 @@ class _SeqManager(GraphManager):
             self.blocking_pulls += 1
             ev = self._row_events[pend[-1][0]]
             if ev is not None:
-                ev.synchronize()
+                with timing.span("drain.wait"):
+                    ev.synchronize()
             host = [e[3] for e in pend]
         for e in pend:
             self._row_events.pop(e[0], None)
@@ -221,30 +232,33 @@ class MultiSequenceSlam:
         compacts: (S, n_bytes) uint8 (stacked wires of compact);
         timestamps: (S,) or a scalar; gt_poses: optional (S, 4, 4), read
         for the first frame only (firstNode's ground-truth anchor)."""
-        compacts = np.ascontiguousarray(np.atleast_2d(np.asarray(compacts)))
-        if compacts.shape[0] != self.S:
-            raise ValueError(f"{compacts.shape[0]} wires for {self.S} sequences")
-        ts = np.broadcast_to(np.asarray(timestamps, np.float64).reshape(-1), (self.S,))
-        if self.n_nodes == 0:
-            for i, sq in enumerate(self.seq):
-                with on_device(sq.device):
-                    sq._add_first_frame(sq._to_device(compacts[i]), float(ts[i]),
-                                        None if gt_poses is None else np.asarray(gt_poses[i]))
-            return
-        new_id = self.n_nodes
-        B = self.cand_batch
-        if new_id >= self.n_cap:
-            raise RuntimeError("node capacity exceeded")
-        if any(sq.n_edges + B + 1 > self.e_cap for sq in self.seq):
-            raise RuntimeError("edge capacity exceeded")
-        i = 0
-        for sh in self.shards:
-            with on_device(sh.device):
-                self._lockstep_shard(sh, compacts[i:i + len(sh.seqs)], ts[i:i + len(sh.seqs)],
-                                     new_id)
-            i += len(sh.seqs)
+        with timing.span("add_frames", self.n_nodes):
+            compacts = np.ascontiguousarray(np.atleast_2d(np.asarray(compacts)))
+            if compacts.shape[0] != self.S:
+                raise ValueError(f"{compacts.shape[0]} wires for {self.S} sequences")
+            ts = np.broadcast_to(np.asarray(timestamps, np.float64).reshape(-1), (self.S,))
+            new_id = self.n_nodes
+            token = timing.begin("pose_landed")  # every sequence's frame, taken now
+            if new_id == 0:
+                for i, sq in enumerate(self.seq):
+                    with on_device(sq.device):
+                        sq._add_first_frame(sq._to_device(compacts[i]), float(ts[i]),
+                                            None if gt_poses is None else np.asarray(gt_poses[i]))
+                    timing.end(token)
+                return
+            B = self.cand_batch
+            if new_id >= self.n_cap:
+                raise RuntimeError("node capacity exceeded")
+            if any(sq.n_edges + B + 1 > self.e_cap for sq in self.seq):
+                raise RuntimeError("edge capacity exceeded")
+            i = 0
+            for sh in self.shards:
+                with on_device(sh.device):
+                    self._lockstep_shard(sh, compacts[i:i + len(sh.seqs)], ts[i:i + len(sh.seqs)],
+                                         new_id, token)
+                i += len(sh.seqs)
 
-    def _lockstep_shard(self, sh: _Shard, compacts, ts, new_id: int) -> None:
+    def _lockstep_shard(self, sh: _Shard, compacts, ts, new_id: int, token) -> None:
         """One lockstep frame of one device's sequences: their slots, one
         packed input buffer, the step (a graph replay on the card), one
         copy of their summaries to the host, then each sequence's
@@ -253,14 +267,18 @@ class MultiSequenceSlam:
         inputs = [sq._frame_inputs([compacts[k]], [float(ts[k])], [new_id], pin=False)
                   for k, sq in enumerate(sh.seqs)]
         L = inputs[0][4]
-        cfgs = [sq._step_cfg() for sq in sh.seqs]
         cuda = sh.device.type == "cuda"
-        # one row a sequence, its length rounded up to 8 bytes: the views of
-        # each row's long block stay aligned
-        size = inputs[0][1].numel()
-        flat = torch.zeros((len(sh.seqs), -(-size // 8) * 8), dtype=torch.uint8, pin_memory=cuda)
-        for k, x in enumerate(inputs):
-            flat[k, :size].copy_(x[1])
+        with timing.span("step.pack", new_id):
+            cfgs = [sq._step_cfg() for sq in sh.seqs]
+            # one row a sequence, its length rounded up to 8 bytes: the views
+            # of each row's long block stay aligned
+            size = inputs[0][1].numel()
+            flat = torch.zeros((len(sh.seqs), -(-size // 8) * 8), dtype=torch.uint8,
+                               pin_memory=cuda)
+            for k, x in enumerate(inputs):
+                flat[k, :size].copy_(x[1])
+            key = (tuple(step_key(1, L, cfg, None) for cfg in cfgs)
+                   if sh.steps is not None else None)
 
         def body(dflat):
             return torch.cat([
@@ -269,20 +287,23 @@ class MultiSequenceSlam:
                 for k, (sq, cfg) in enumerate(zip(sh.seqs, cfgs))])
 
         if sh.steps is not None:
-            sums = sh.steps.launch(tuple(step_key(1, L, cfg, None) for cfg in cfgs), flat, body)
+            sums = sh.steps.launch(key, flat, body)
         else:  # the CPU, or eager steps on the card
-            sums = body(flat.to(sh.device, non_blocking=True))
-        done = None
-        if cuda:
-            done = torch.cuda.Event()
-            done.record()
-        host, event = sh.seqs[0]._start_copy(sums)  # one copy for the shard's sequences
-        for k, sq in enumerate(sh.seqs):
-            sq._step_calls += 1
-            sq._step_done = done
-            sq._row_events[new_id] = event
-            cpt, _, slots, e_starts, _ = inputs[k]
-            sq._frames_queued(cpt, [float(ts[k])], [new_id], slots, e_starts, [host[k]])
+            with timing.span("step.launch", new_id):
+                sums = body(flat.to(sh.device, non_blocking=True))
+        with timing.span("step.queued", new_id):
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+            host, event = sh.seqs[0]._start_copy(sums)  # one copy for the shard's sequences
+            for k, sq in enumerate(sh.seqs):
+                sq._step_calls += 1
+                sq._step_done = done
+                sq._row_events[new_id] = event
+                cpt, _, slots, e_starts, _ = inputs[k]
+                sq._frames_queued(cpt, [float(ts[k])], [new_id], slots, e_starts, [host[k]],
+                                  [token])
 
     # ------------------------------------------------------------------
     def _drain(self, keep_newest: int = 0) -> None:
@@ -300,22 +321,23 @@ class MultiSequenceSlam:
         nothing from the card. The solver: GraphManager's rule
         (backend_solver's, else dense up to 1024 nodes of capacity). Returns the per-sequence chi2 (NaN where
         non-blocking)."""
-        self._drain(keep_newest=0 if blocking else 2)
-        p = self.params
-        for sh in self.shards:
-            sh.graph.node_fixed.zero_()
-            sh.graph.node_fixed[:, 0] = True
-        chi2 = np.full(self.S, np.nan)
-        for i, sq in enumerate(self.seq):
-            with on_device(sq.device):
-                c, _ = optimize(sq.graph, iterations=int(iterations or p["optimizer_iterations"]),
-                                huber_delta=p["huber_delta"], pcg_iters=pcg_iters,
-                                solver=sq._solver(sq.n_cap),
-                                n_nodes=sq.n_nodes, n_edges=sq.n_edges,
-                                read_convergence=blocking)
-            if blocking:
-                chi2[i] = float(c)
-        return chi2
+        with timing.span("optimize.blocking" if blocking else "optimize.online"):
+            self._drain(keep_newest=0 if blocking else 2)
+            p = self.params
+            for sh in self.shards:
+                sh.graph.node_fixed.zero_()
+                sh.graph.node_fixed[:, 0] = True
+            chi2 = np.full(self.S, np.nan)
+            for i, sq in enumerate(self.seq):
+                with on_device(sq.device), timing.span("optimize.seq", i):
+                    c, _ = optimize(
+                        sq.graph, iterations=int(iterations or p["optimizer_iterations"]),
+                        huber_delta=p["huber_delta"], pcg_iters=pcg_iters,
+                        solver=sq._solver(sq.n_cap), n_nodes=sq.n_nodes, n_edges=sq.n_edges,
+                        read_convergence=blocking)
+                if blocking:
+                    chi2[i] = float(c)
+            return chi2
 
     def prune_edges_above(self, threshold: float) -> np.ndarray:
         """Per-sequence pruneEdgesWithErrorAbove (graph_manager.cpp:1106):
@@ -340,25 +362,26 @@ class MultiSequenceSlam:
         0.25} and re-optimize (openni_listener.cpp:431-518), the first node
         fixed. Returns {level: (S, T, 4, 4) poses} and, with ground truth
         (per-sequence lists gt_stamps, gt_xyz), {level: (S,) ATE rmse}."""
-        from ..eval.ate import evaluate_ate
+        with timing.span("protocol"):
+            from ..eval.ate import evaluate_ate
 
-        p = self.params
-        levels: Dict[int, np.ndarray] = {0: self.trajectories()}
-        self.optimize(iterations=p["optimizer_iterations"] * 2)
-        levels[1] = self.trajectories()
-        for level, thresh in ((2, p["edge_error_threshold"]), (3, 1.0), (4, 0.25)):
-            self.prune_edges_above(thresh)
-            self.optimize(iterations=p["optimizer_iterations"])
-            levels[level] = self.trajectories()
-        ate: Dict[int, np.ndarray] = {}
-        if gt_stamps is not None and gt_xyz is not None:
-            for level, poses in levels.items():
-                rmse = np.full(self.S, np.nan)
-                for i, sq in enumerate(self.seq):
-                    try:
-                        rmse[i] = evaluate_ate(sq.timestamps, poses[i, :, :3, 3],
-                                               gt_stamps[i], gt_xyz[i]).rmse
-                    except ValueError:
-                        pass
-                ate[level] = rmse
-        return levels, ate
+            p = self.params
+            levels: Dict[int, np.ndarray] = {0: self.trajectories()}
+            self.optimize(iterations=p["optimizer_iterations"] * 2)
+            levels[1] = self.trajectories()
+            for level, thresh in ((2, p["edge_error_threshold"]), (3, 1.0), (4, 0.25)):
+                self.prune_edges_above(thresh)
+                self.optimize(iterations=p["optimizer_iterations"])
+                levels[level] = self.trajectories()
+            ate: Dict[int, np.ndarray] = {}
+            if gt_stamps is not None and gt_xyz is not None:
+                for level, poses in levels.items():
+                    rmse = np.full(self.S, np.nan)
+                    for i, sq in enumerate(self.seq):
+                        try:
+                            rmse[i] = evaluate_ate(sq.timestamps, poses[i, :, :3, 3],
+                                                   gt_stamps[i], gt_xyz[i]).rmse
+                        except ValueError:
+                            pass
+                    ate[level] = rmse
+            return levels, ate

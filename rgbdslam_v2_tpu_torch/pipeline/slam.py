@@ -75,6 +75,7 @@ from ..graph.manager import GraphManager
 from ..interop import tensor_to_numpy
 from ..io.tum import TumDataset, TumLoader, write_trajectory
 from ..mapping import VoxelMap, VoxelMapConfig
+from ..utils import timing
 
 
 @dataclasses.dataclass
@@ -144,6 +145,7 @@ class SlamPipeline:
         self.n_processed = 0
         self.n_dropped = 0  # frames that did not enter the graph
         self.wall_time = 0.0
+        self._group_tokens = None  # the next group's pose_landed tokens (_run_frames)
         # online octomap creation (graph_manager.cpp:1044-1049)
         self._online_map: Optional[VoxelMap] = None
         self._online_inserts = 0
@@ -245,18 +247,20 @@ class SlamPipeline:
 
     @torch.inference_mode()
     def process_frame(self, rgb, depth, timestamp: float, gt_pose=None,
-                      compact=None) -> bool:
+                      compact=None, token=None) -> bool:
         """One frame (rgb u8 (H, W, 3), depth meters or u16 counts), or a
         pre-packed yc12 buffer. Returns True when the node entered; False
-        for a frame dropped while paused, which moves no counter."""
+        for a frame dropped while paused, which moves no counter. token:
+        the frame's pose_landed, as GraphManager.add_frame's."""
         if self.paused and not self._step_once:
             return False
         self._step_once = False
         if self.live_dir is not None and rgb is not None:
             self._last_raw = (rgb, depth)
-        t0 = time.perf_counter()
-        took = self.manager.add_frame(rgb, depth, timestamp, gt_pose, compact=compact)
-        self.wall_time += time.perf_counter() - t0
+        mgr = self.manager
+        with timing.span("frames", mgr.n_nodes) as sp:
+            took = mgr.add_frame(rgb, depth, timestamp, gt_pose, compact=compact, token=token)
+        self.wall_time += sp.elapsed
         self.n_processed += 1
         if not took:
             self.n_dropped += 1
@@ -521,28 +525,37 @@ class SlamPipeline:
               if ahead and p["tpu_encode_ahead"] and not mgr.wire_delta and n > 1 else None)
         futs = {}
 
+        def taken_at(pos):
+            # a frame's pose_landed opens as the program takes it
+            return timing.begin("pose_landed"), *enc_at(pos)
+
         def get_enc(pos):
             if ex is None:
-                return enc_at(pos)
+                return taken_at(pos)
             f = futs.pop(pos, None)
-            out = f.result() if f is not None else enc_at(pos)
+            if f is None:
+                out = taken_at(pos)
+            else:
+                with timing.span("encode.wait", pos):
+                    out = f.result()
             for q in (pos + 1, pos + 2):
                 if q < n and q not in futs:
-                    futs[q] = ex.submit(enc_at, q)
+                    futs[q] = ex.submit(taken_at, q)
             return out
 
         try:
             k = 0
             while k < n:
                 mark = mgr.wire_mark()
-                cpt, raw = get_enc(k)
+                tok, cpt, raw = get_enc(k)
                 g = min(ngroup, n - k)
                 if g >= 2 and not self.paused and mgr.can_group(g):
-                    items = [(cpt, raw)] + [get_enc(k + m) for m in range(1, g)]
-                    self._process_group([c for c, _ in items],
+                    items = [(tok, cpt, raw)] + [get_enc(k + m) for m in range(1, g)]
+                    self._group_tokens = [t for t, _, _ in items]
+                    self._process_group([c for _, c, _ in items],
                                         [float(t) for t in stamps[k : k + g]])
-                    if items[-1][1] is not None:  # the panes show the group's last frame
-                        self._live_frame = (*items[-1][1], mgr.n_nodes - 1)
+                    if items[-1][2] is not None:  # the panes show the group's last frame
+                        self._live_frame = (*items[-1][2], mgr.n_nodes - 1)
                     self._live_refresh(count=g)
                     k += g
                     continue
@@ -550,7 +563,7 @@ class SlamPipeline:
                 if raw is not None:
                     self._last_raw = raw
                 done = self.n_processed
-                self.process_frame(None, None, float(stamps[k]), gt, compact=cpt)
+                self.process_frame(None, None, float(stamps[k]), gt, compact=cpt, token=tok)
                 if self.n_processed == done:  # dropped while paused
                     mgr.wire_rewind(mark)
                 k += 1
@@ -560,10 +573,12 @@ class SlamPipeline:
 
     @torch.inference_mode()
     def _process_group(self, compacts, stamps) -> None:
-        """Frames that all enter the graph (keep-all): one step call."""
-        t0 = time.perf_counter()
-        self.manager.add_frame_group(compacts, stamps)
-        self.wall_time += time.perf_counter() - t0
+        """Frames that all enter the graph (keep-all): one step call. Their
+        pose_landed tokens: those _run_frames took them with, else new."""
+        tokens, self._group_tokens = self._group_tokens, None
+        with timing.span("frames", self.manager.n_nodes) as sp:
+            self.manager.add_frame_group(compacts, stamps, tokens=tokens)
+        self.wall_time += sp.elapsed
         self.n_processed += len(compacts)
         if self.params["octomap_online_creation"]:  # every grouped node entered
             for nid in range(self.manager.n_nodes - len(compacts), self.manager.n_nodes):
@@ -575,44 +590,45 @@ class SlamPipeline:
         """L0: online estimates; L1: full optimization; L2..L4: prune edges
         with chi2 above edge_error_threshold / 1 / 0.25, re-optimizing after
         each prune (openni_listener.cpp:431)."""
-        out = Path(out_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        mgr = self.manager
-        levels: Dict[int, str] = {}
-        ate: Dict[int, float] = {}
+        with timing.span("protocol"):
+            out = Path(out_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            mgr = self.manager
+            levels: Dict[int, str] = {}
+            ate: Dict[int, float] = {}
 
-        def save_level(level: int):
-            stamps, poses = mgr.trajectory()
-            path = out / f"{prefix}_iteration_{level}.txt"
-            write_trajectory(path, stamps, poses, comment=(
-                f"level {level}; frames {self.params['fixed_frame_name']}->"
-                f"{self.params['base_frame_name']}"))
-            levels[level] = str(path)
-            if gt_stamps is not None and gt_xyz is not None and len(stamps) > 2:
-                try:
-                    ate[level] = evaluate_ate(stamps, poses[:, :3, 3], gt_stamps, gt_xyz).rmse
-                except ValueError:
-                    pass
+            def save_level(level: int):
+                stamps, poses = mgr.trajectory()
+                path = out / f"{prefix}_iteration_{level}.txt"
+                write_trajectory(path, stamps, poses, comment=(
+                    f"level {level}; frames {self.params['fixed_frame_name']}->"
+                    f"{self.params['base_frame_name']}"))
+                levels[level] = str(path)
+                if gt_stamps is not None and gt_xyz is not None and len(stamps) > 2:
+                    try:
+                        ate[level] = evaluate_ate(stamps, poses[:, :3, 3], gt_stamps, gt_xyz).rmse
+                    except ValueError:
+                        pass
 
-        save_level(0)
-        saved_fixation = self.params["pose_relative_to"]
-        try:
-            self.params["pose_relative_to"] = "first"
-            mgr.optimize(iterations=self.params["optimizer_iterations"] * 2)
-            save_level(1)
-            thresholds = ((2, self.params["edge_error_threshold"]), (3, 1.0), (4, 0.25))
-            for level, thresh in thresholds:
-                mgr.prune_edges_above(thresh)
-                mgr.optimize(iterations=self.params["optimizer_iterations"])
-                save_level(level)
-        finally:
-            self.params["pose_relative_to"] = saved_fixation
+            save_level(0)
+            saved_fixation = self.params["pose_relative_to"]
+            try:
+                self.params["pose_relative_to"] = "first"
+                mgr.optimize(iterations=self.params["optimizer_iterations"] * 2)
+                save_level(1)
+                thresholds = ((2, self.params["edge_error_threshold"]), (3, 1.0), (4, 0.25))
+                for level, thresh in thresholds:
+                    mgr.prune_edges_above(thresh)
+                    mgr.optimize(iterations=self.params["optimizer_iterations"])
+                    save_level(level)
+            finally:
+                self.params["pose_relative_to"] = saved_fixation
 
-        fps = self.n_processed / self.wall_time if self.wall_time > 0 else 0.0
-        report = EvaluationReport(levels=levels, ate_rmse=ate, duration_s=self.wall_time,
-                                  fps=fps, statistics=mgr.statistics())
-        (out / f"{prefix}_report.json").write_text(json.dumps(report.as_dict(), indent=2))
-        return report
+            fps = self.n_processed / self.wall_time if self.wall_time > 0 else 0.0
+            report = EvaluationReport(levels=levels, ate_rmse=ate, duration_s=self.wall_time,
+                                      fps=fps, statistics=mgr.statistics())
+            (out / f"{prefix}_report.json").write_text(json.dumps(report.as_dict(), indent=2))
+            return report
 
     # ------------------------------------------------------------------
     # outputs (graph_mgr_io.cpp)

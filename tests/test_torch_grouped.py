@@ -157,13 +157,13 @@ def test_encode_ahead_sends_the_same_wires(sequence, monkeypatch):
         seen = []
         add_group, add_frame = GraphManager.add_frame_group, GraphManager.add_frame
 
-        def group(self, compacts, tss, _f=add_group, _seen=seen):
+        def group(self, compacts, tss, _f=add_group, _seen=seen, **kw):
             _seen.extend(np.array(c) for c in compacts)
-            return _f(self, compacts, tss)
+            return _f(self, compacts, tss, **kw)
 
-        def frame(self, rgb, depth, ts, gt=None, compact=None, _f=add_frame, _seen=seen):
+        def frame(self, rgb, depth, ts, gt=None, compact=None, _f=add_frame, _seen=seen, **kw):
             _seen.append(np.array(compact))
-            return _f(self, rgb, depth, ts, gt, compact=compact)
+            return _f(self, rgb, depth, ts, gt, compact=compact, **kw)
 
         monkeypatch.setattr(GraphManager, "add_frame_group", group)
         monkeypatch.setattr(GraphManager, "add_frame", frame)

@@ -91,9 +91,9 @@ def test_config_outside_the_slice_raises(override):
 
 def _recorded(add_frame_group, sizes):
     """add_frame_group that appends each group's length to sizes."""
-    def spy(self, compacts, tss):
+    def spy(self, compacts, tss, **kw):
         sizes.append(len(compacts))
-        return add_frame_group(self, compacts, tss)
+        return add_frame_group(self, compacts, tss, **kw)
     return spy
 
 

@@ -32,8 +32,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> None:
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(1, str(ROOT / "slambench"))
     from chip_smoke import MULTI_PROFILE_FRAMES, WARMUP, multi_params
-    from profile_torch_port import busy_ms
+    from lib.trace import union_s
 
     ap = argparse.ArgumentParser()
     ap.add_argument("frames_dir")
@@ -76,7 +77,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - tp)
     acts = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy = busy_ms(acts) if acts else None
+    busy = union_s((e.time_range.start, e.time_range.end) for e in acts) / 1e3 if acts else None
     print(json.dumps({
         "sequences": S, "frames_timed": end - WARMUP,
         "lockstep_fps": (end - WARMUP) / dt, "sequence_frames_per_s": S * (end - WARMUP) / dt,
