@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..core import se3
+from ..utils import timing
 
 
 @dataclasses.dataclass
@@ -250,21 +251,23 @@ def optimize(g: GraphState, iterations: int = 20, huber_delta: float = 1.0,
     done = torch.zeros((), dtype=torch.bool, device=g.poses.device)
     it = 0
     while it < iterations:
-        poses, lam_new, chi2_before, chi2_new = lm_iteration(sub, lam, huber_delta,
-                                                             pcg_iters, solver)
-        it += 1
-        rel = (chi2_before - chi2_new) / torch.clamp(chi2_before, min=1e-12)
-        # converged only on an ACCEPTED step with a small relative decrease
-        # (a rejected step retries with a larger lambda)
-        converged = (chi2_new < chi2_before) & (rel < chi2_rel_tol)
-        if read_convergence:
-            sub.poses.copy_(poses)
-            lam, chi2 = lam_new, chi2_new
-            if bool(converged):
-                break
-        else:
-            sub.poses.copy_(torch.where(done, sub.poses, poses))
-            lam = torch.where(done, lam, lam_new)
-            chi2 = torch.where(done, chi2, chi2_new)
-            done = done | converged
+        # span optimize.lm: one iteration, its convergence read included
+        with timing.span("optimize.lm", it):
+            poses, lam_new, chi2_before, chi2_new = lm_iteration(sub, lam, huber_delta,
+                                                                 pcg_iters, solver)
+            it += 1
+            rel = (chi2_before - chi2_new) / torch.clamp(chi2_before, min=1e-12)
+            # converged only on an ACCEPTED step with a small relative decrease
+            # (a rejected step retries with a larger lambda)
+            converged = (chi2_new < chi2_before) & (rel < chi2_rel_tol)
+            if read_convergence:
+                sub.poses.copy_(poses)
+                lam, chi2 = lam_new, chi2_new
+                if bool(converged):
+                    break
+            else:
+                sub.poses.copy_(torch.where(done, sub.poses, poses))
+                lam = torch.where(done, lam, lam_new)
+                chi2 = torch.where(done, chi2, chi2_new)
+                done = done | converged
     return chi2, it

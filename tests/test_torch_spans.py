@@ -224,18 +224,19 @@ def test_profiler_ranges_only_while_a_profiler_records(monkeypatch, sequence):
 
 def test_every_program_span_reader_reads_a_tiny_run(sequence, tmp_path):
     """Each of the benchmark's readers of the program's spans
-    (slambench/metrics) reads a number from the program's aggregates after a tiny single
-    pipeline and a tiny MultiSequenceSlam: all but step_bringup_ms, whose
-    CUDA graphs exist on the card only."""
+    (slambench/metrics) reads a number from the program's aggregates after a
+    tiny single pipeline on each path and a tiny MultiSequenceSlam: all but
+    step_bringup_ms, whose CUDA graphs exist on the card only."""
     import importlib.util
     import json
     from pathlib import Path
 
     poses, rgbs, depths, stamps = sequence
-    pipe = SlamPipeline(CAM, ParameterServer(dict(KEEP_ALL)), device="cpu")
-    pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
-    pipe.manager.optimize(blocking=True)
-    pipe.evaluation_protocol(tmp_path)
+    for params in (KEEP_ALL, SMALL):
+        pipe = SlamPipeline(CAM, ParameterServer(dict(params)), device="cpu")
+        pipe.run_arrays(rgbs, depths, stamps, gt_poses=poses)
+        pipe.manager.optimize(blocking=True)
+        pipe.evaluation_protocol(tmp_path)
     S = 2
     ms = MultiSequenceSlam(CAM, S, params=ParameterServer(dict(
         KEEP_ALL, tpu_encode_ahead=False, pose_relative_to="first")), device="cpu")
@@ -249,7 +250,7 @@ def test_every_program_span_reader_reads_a_tiny_run(sequence, tmp_path):
     spec = json.loads((root.parent / "BENCHMARK.json").read_text())
     names = [m["name"] for m in spec["per_layer"]
              if "utils import timing" in (root / "metrics" / f"{m['name']}.py").read_text()]
-    assert len(names) == 20
+    assert len(names) == 25
     read = {}
     for name in names:
         loader = importlib.util.spec_from_file_location(name, root / "metrics" / f"{name}.py")
